@@ -1,6 +1,6 @@
-"""Benchmark: device-resident scene pan (snapshot_scene/render_view) on TPU.
+"""Benchmark: device-resident scene pan (snapshot_scene/render_view).
 
-Scrolling the reference way re-walks the scene every tick; the TPU-native
+Scrolling the reference way re-walks the scene every tick; the device
 camera keeps the flattened tape in device memory and per frame ships only a
 (2,) f32 offset — executor.pan_rows shifts the quads inside the jitted
 executor, so a pan frame costs pure kernel time: no scene build, no C++

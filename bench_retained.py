@@ -1,4 +1,4 @@
-"""Benchmark: retained-scene updates (renderer.update_scene) on TPU.
+"""Benchmark: retained-scene updates (renderer.update_scene).
 
 A UI frame usually edits a handful of widgets; the reference re-walks and
 re-uploads the whole scene anyway. The retained path re-walks ONLY the dirty

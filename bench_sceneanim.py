@@ -1,10 +1,10 @@
 """Benchmark: device-resident per-root animation (render_view's
-root_transforms) on TPU vs the host re-flatten loop.
+root_transforms) vs the host re-flatten loop.
 
 The reference's demo loop re-walks the whole scene every animation tick
 (/root/reference/examples/renderlist_100_common.nim:38-251); round 4 made
-that walk native C and it still costs ~80 ns/quad — at 12000 boxes the host
-is the wall (~11.5 ms of a 14.3 ms frame) while the device idles. The
+that walk native C, and at 12000 boxes the host walk still dominates the
+frame while the device idles (not measured on the GPU yet). The
 affine-animation path snapshots the scene ONCE and per frame ships only a
 (roots, 6) f32 table; executor.animate_rows moves every root inside the
 jitted dispatch, so the per-frame host cost is the numpy phase math plus

@@ -52,8 +52,7 @@ def main() -> None:
 
     tid = load_typeface("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf")
     ink = fill(rgba(20, 20, 30, 255))
-    ren = FigRenderer(atlas_size=512)  # <= raster_pallas.ATLAS11_MAX_SIZE:
-    # the glyph set lives in VMEM and atlas quads sample in-kernel
+    ren = FigRenderer(atlas_size=512)
     size = vec2(W, H)
     scene, n_glyphs = build_scene(tid, ink, 0)
     for _ in range(WARMUP):

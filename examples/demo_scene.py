@@ -1,8 +1,8 @@
 """Offscreen demo: render showcase scenes to PNG files.
 
-The TPU engine's "window" is a frame sink — screenshots and streams
-(SURVEY.md §7: windowing is out of scope on TPU; takeScreenshot semantics
-are kept). Run: python examples/demo_scene.py [outdir]
+The engine's "window" is a frame sink — screenshots and streams
+(SURVEY.md §7: windowing is out of scope; takeScreenshot semantics are
+kept). Run: python examples/demo_scene.py [outdir]
 """
 
 import os

@@ -12,7 +12,7 @@ Four demos, each writing PNG(s) into examples/out/:
                   via replace_image — the video/live-canvas path
                   (siwin_replace_image.nim, imgutils.nim:563-584)
 
-Run: python examples/demos.py [demo ...]   (PYTHONPATH= JAX_PLATFORMS=cpu for CPU)
+Run: python examples/demos.py [demo ...]   (JAX_PLATFORMS=cpu for CPU)
 """
 
 import math

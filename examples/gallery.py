@@ -5,7 +5,7 @@ drawables (beziers/arcs/dashed borders), images with mips, MSDF scalables,
 shaped text (ligatures, bidi, Arabic), and an external overlay layer.
 Writes gallery.png.
 
-Run: python examples/gallery.py  (JAX_PLATFORMS=cpu PYTHONPATH= for CPU)
+Run: python examples/gallery.py  (JAX_PLATFORMS=cpu for CPU)
 """
 
 import os

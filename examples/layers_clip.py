@@ -9,7 +9,7 @@ the z-order composition. The same scene drives tests/test_golden_layers.py
 bit-exactly against the reference PNG; this demo animates the overflow a
 little and writes examples/out/layers_clip.png.
 
-Run: PYTHONPATH= JAX_PLATFORMS=cpu python examples/layers_clip.py
+Run: JAX_PLATFORMS=cpu python examples/layers_clip.py
 """
 
 import os

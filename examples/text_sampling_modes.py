@@ -10,7 +10,7 @@ with status-line labels, one renderer per configuration (the sampling mode
 is an atlas-wide property, like the reference's per-window renderer).
 Writes examples/out/text_sampling_modes.png.
 
-Run: PYTHONPATH= JAX_PLATFORMS=cpu python examples/text_sampling_modes.py
+Run: JAX_PLATFORMS=cpu python examples/text_sampling_modes.py
 """
 
 import os

@@ -10,8 +10,8 @@ stats strip; plus a mixed-fallback panel with FiraCode coding ligatures
 variation axes (surfer_text_shaping_demo.nim:19-22,95-125). Writes
 text_shaping_demo.png.
 
-Run: python examples/text_shaping_demo.py  (add JAX_PLATFORMS=cpu PYTHONPATH=
-to force CPU)
+Run: python examples/text_shaping_demo.py  (add JAX_PLATFORMS=cpu to force
+the CPU)
 """
 
 import os

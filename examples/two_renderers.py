@@ -6,10 +6,10 @@ instances (own atlas, own combo pools, own jit executor state), separate
 scene graphs and palettes, different sizes and UI scales, rendered
 interleaved for a few animation frames to prove nothing is shared
 (windy_two_windows.nim DemoWindow: window+renderer+renders per target).
-The TPU analog of a second window is simply a second offscreen sink.
+The offscreen analog of a second window is simply a second sink.
 Writes examples/out/two_renderers_{a,b}.png.
 
-Run: PYTHONPATH= JAX_PLATFORMS=cpu python examples/two_renderers.py
+Run: JAX_PLATFORMS=cpu python examples/two_renderers.py
 """
 
 import math

@@ -6,7 +6,7 @@ from a render loop: a procedural 48-frame "video" is published frame by
 frame through the image message bus, composited under a HUD (title bar,
 progress bar, frame counter chip) and rendered through the async frame
 pipeline (render_frame_async overlaps frame N+1's host flatten with frame
-N's upload+kernel — the TPU analog of the reference's GL loop pacing).
+N's upload+kernel — the analog of the reference's GL loop pacing).
 
 Writes examples/out/video_stream/frame_###.png (every 6th frame) plus a
 contact-sheet video_stream.png.

@@ -1,10 +1,11 @@
-"""figdraw_tpu — a TPU-native 2D SDF rendering engine.
+"""figdraw_tpu — a 2D SDF rendering engine in JAX.
 
 A from-scratch JAX/Pallas re-build with the capabilities of the reference
 figdraw engine (/root/reference): retained-list scene graphs of SDF-shaded
 primitives (rounded rects, borders, shadows, gradients, beziers, images,
 MSDF glyphs), ZLevel layer compositing, clip/rect masks and backdrop blur —
-rasterized by tiled TPU kernels instead of GL/Vulkan/Metal quad batching.
+rasterized by tiled Pallas kernels (Triton on the GPU) instead of
+GL/Vulkan/Metal quad batching.
 
 Umbrella module mirroring the reference's `import figdraw`
 (/root/reference/src/figdraw.nim:1-7).
@@ -156,7 +157,7 @@ from .text.layout import (  # noqa: F401
 )
 from .config import apply_startup_env as _apply_startup_env
 
-# (the persistent TPU compile cache is enabled lazily by FigRenderer —
+# (the persistent compile cache is enabled lazily by FigRenderer —
 # touching jax.default_backend() at import time would initialize the backend)
 _apply_startup_env()
 

@@ -1,6 +1,6 @@
-"""Texture atlas: host-side skyline packer + one RGBA array uploaded to HBM.
+"""Texture atlas: host-side skyline packer + one RGBA array on the device.
 
-TPU-native equivalent of the GL atlas
+This renderer's equivalent of the GL atlas
 (/root/reference/src/figdraw/opengl/glcontext.nim:521-641): a square RGBA
 texture packed by a column-height ("skyline") allocator with a per-entry
 margin, growing by doubling and repacking on overflow. Entries map image keys

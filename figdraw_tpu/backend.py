@@ -205,7 +205,7 @@ class BackendContext:
     """Abstract draw-target contract (figbackend.nim:185-705).
 
     Implements the pieces every backend shares — the transform stack and SDF AA
-    factor — and leaves draw methods to subclasses (the TPU tape backend, the
+    factor — and leaves draw methods to subclasses (the tape backend, the
     recording test backend).
     """
 

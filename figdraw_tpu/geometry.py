@@ -1,6 +1,6 @@
 """Minimal 2D geometry types for the scene graph and flattener.
 
-TPU-native rebuild of the reference's vmath/bumpy usage
+A rebuild of the reference's vmath/bumpy usage
 (/root/reference/src/figdraw/common/uimaths.nim:1-10). Only the pieces the
 renderer actually needs: Vec2, Rect, and a 2D-affine Mat3 standing in for the
 reference's Mat4 transform stack (figdraw only ever composes translate /

@@ -137,9 +137,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ]
         lib.fd_export_combo_packed.restype = ctypes.c_int
         lib.fd_tape_info.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.fd_density.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
         lib.fd_cull_saturated.argtypes = [
             ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
         ]
@@ -549,11 +546,6 @@ def _export_tape_combo(lib, ctx, frame_w, frame_h, clear_color, bucket,
             structure.append(("clear_mask", int(target)))
     structure_len = len(structure)
     tape.structure_cache = (structure, draws, radii, any_atlas, any_backdrop)
-    from .ops.raster_pallas import TILE_H, TILE_W
-
-    dens = np.zeros(2, np.float32)
-    lib.fd_density(ctx, TILE_W, TILE_H, dens.ctypes.data_as(ctypes.c_void_p))
-    tape.tile_density = (float(dens[0]), float(dens[1]))
 
     rolled = structure_len > ROLLED_THRESHOLD
     row_width = PACKED_WIDTH
@@ -618,25 +610,20 @@ def flatten_fast(
     info = np.zeros(4, np.int32)
     lib.fd_tape_info(ctx, info.ctypes.data_as(ctypes.c_void_p))
     n_quads, n_items, mask_count, flags = (int(v) for v in info)
-    from .ops.raster_pallas import VMEM_MEGA_ROWS
+    from .ops.raster_pallas import mega_fits
 
-    # tight row bound: quads + clear sentinels (draw/blur items never add
-    # rows) — bucketing on n_items oversized mask-heavy uploads by ~1/3
-    cap = (bucket or (lambda v: v))(n_quads + lib.fd_clear_count(ctx))
-    # the mega kernel holds the whole tape in VMEM and cannot chunk — tapes
-    # past the scoped-VMEM budget take the tape export (rolled executor)
-    if n_items > min_items and flags == 0 and cap <= VMEM_MEGA_ROWS:
+    # mask planes beyond the megakernel's register budget take the tape
+    # export (rolled executor) — chosen by shape, before any upload
+    if n_items > min_items and flags == 0 and mega_fits(mask_count + 1):
+        # tight row bound: quads + clear sentinels (draw/blur items never
+        # add rows) — bucketing on n_items oversized mask-heavy uploads
+        cap = (bucket or (lambda v: v))(n_quads + lib.fd_clear_count(ctx))
         # pooled upload buffer (+1 meta row the caller fills): C++ zeroes
         # the padding rows, so ping-pong reuse never leaks a prior frame
         combo = _pooled_combo(ctx, (cap + 1, row_width), owner=pool_owner)
         rows = lib.fd_export_mega_packed(ctx, _ptr(combo), cap, row_width)
         if rows >= 0:
-            from .ops.raster_pallas import TILE_H, TILE_W
-
-            dens = np.zeros(2, np.float32)
-            lib.fd_density(ctx, TILE_W, TILE_H,
-                           dens.ctypes.data_as(ctypes.c_void_p))
-            return "mega", combo, mask_count, (float(dens[0]), float(dens[1]))
+            return "mega", combo, mask_count
     if bucket is not None:
         return "tape", _export_tape_combo(lib, ctx, frame_w, frame_h,
                                           clear_color, bucket,

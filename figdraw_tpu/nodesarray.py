@@ -1,8 +1,8 @@
 """Structure-of-arrays scene storage for the native flattener.
 
 The reference keeps Fig as a flat 256-byte POD in a contiguous seq
-(fignodes.nim:94-97) precisely so the render walk is cache-friendly; the
-TPU build mirrors that with a NumPy structured array (FIG_DTYPE) that the
+(fignodes.nim:94-97) precisely so the render walk is cache-friendly; this
+build mirrors that with a NumPy structured array (FIG_DTYPE) that the
 C++ flattener (native/flatten.cpp) walks directly — zero per-frame
 marshalling between Python objects and native code.
 

@@ -1,1 +1,1 @@
-"""TPU compute ops: SDF math, quad evaluation, rasterizers, blur, binning."""
+"""Device compute ops: SDF math, quad evaluation, rasterizers, blur, binning."""

@@ -1,6 +1,6 @@
 """Tile binning: map quad AABBs to per-tile draw-ordered index lists.
 
-The TPU-native replacement for GL's hardware triangle binning. One XLA call:
+The replacement for GL's hardware triangle binning. One XLA call:
 a (T, N) intersection mask from the tape's bboxes, then a stable argsort per
 tile so each tile sees only its quads, still in draw order (the ordered-alpha
 requirement from SURVEY.md §7 "hard parts" #1).

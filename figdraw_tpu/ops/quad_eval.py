@@ -68,14 +68,6 @@ MODE_BEZIER_SQUARE = 20
 # 7 -> 21 to pin that golden; nothing else emits this mode.
 MODE_DROP_SHADOW_LINEAR = 21
 
-# Mode-lane bit 13: the quad samples the atlas through an EXACT 1:1
-# axis-aligned uv map (glyphs, unscaled images) — the Pallas kernels then
-# sample in-kernel via a dynamic-offset VMEM window + pltpu.roll instead of
-# exiling the run to the XLA gather path. Set host-side
-# (raster_pallas.mark_atlas11) only after validating the quad's affine; the
-# XLA evaluators ignore it (fill-mode extraction masks to 3 bits).
-MODE_ATLAS11_BIT = 1 << 13
-
 
 def sample_atlas_bilinear(atlas, u, v):
     """GL_LINEAR, clamp-to-edge sample of the RGBA atlas; uv normalized.
@@ -146,7 +138,7 @@ def eval_quad(
     v = f[QF_INV_C] * rx + f[QF_INV_D] * ry
     # epsilon guard: snapped integer geometry routinely puts rotated quad
     # edges EXACTLY through pixel centers (u or v == 0.0 to the last bit),
-    # and XLA vs Mosaic order/fuse the inverse-affine multiply-add
+    # and XLA vs the Pallas kernels order/fuse the inverse-affine multiply-add
     # differently — a ±1ulp tie would flip a whole AA edge pixel between
     # the paths (found by test_retained's cross-renderer pin). 1e-6 in uv
     # is ≤ ~4e-3 px for any plausible quad; ties at -1e-6 exactly cannot

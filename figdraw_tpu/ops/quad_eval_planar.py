@@ -1,11 +1,11 @@
 """Channel-planar quad evaluation for the Pallas tile kernel.
 
-Same math as ops/quad_eval.py (the atlas.frag port), restructured for TPU
-vector registers: pixel grids are 2D (TH, TW) tiles, colors are four separate
-planes instead of a trailing RGBA dim (trailing dims of 4 waste 124 of 128
-lanes). Atlas-sampling modes (0, 13-16) are NOT handled here — the renderer
-routes runs containing them through the XLA path, where gathers are cheap;
-every SDF mode, backdrop blur and the rect-mask fast path are.
+Same math as ops/quad_eval.py (the atlas.frag port), restructured for the
+tile kernels: pixel grids are 2D (TH, TW) blocks and colors are four
+separate planes instead of a trailing RGBA dim. Atlas-sampling modes (0,
+13-16) are NOT handled here — the renderer routes runs containing them
+through the XLA path, where gathers are cheap; every SDF mode, backdrop blur
+and the rect-mask fast path are.
 
 Branch structure: a scalar `mode` drives lax.cond branches so a tile only
 pays for the SDF family its quad actually uses (bezier cubic-root solve and
@@ -36,8 +36,6 @@ from .layout import (
     QF_RECT_PARAMS,
     QF_RECT_RADII,
     QF_STOP_COLOR,
-    QF_SUBPIXEL_SHIFT,
-    QF_UV3_X,
 )
 from .quad_eval import (
     MODE_ANNULAR,
@@ -53,21 +51,13 @@ from .quad_eval import (
 )
 
 
-def eval_quad_planar(fget, mode_packed, px, py, backdrop_planes=None,
-                     atlas_ref=None, tile_origin=None,
-                     subpixel_positioning: bool = False,
-                     atlas_size: int = 0):
+def eval_quad_planar(fget, mode_packed, px, py, backdrop_planes=None):
     """Evaluate one SDF quad over a 2D pixel tile.
 
-    fget(k) -> scalar f32 field at layout offset k (reads from a VMEM row or a
-    captured array — keeps this function agnostic of the memory source).
-    mode_packed: scalar i32. px, py: (TH, TW) pixel centers.
+    fget(k) -> scalar f32 field at layout offset k (a scalar load from a
+    kernel ref or a captured array — keeps this function agnostic of the
+    memory source). mode_packed: scalar i32. px, py: (TH, TW) pixel centers.
     backdrop_planes: optional tuple of 4 (TH, TW) planes for mode 17.
-    atlas_ref: optional channel-planar (4, S, S) VMEM ref; quads carrying
-    MODE_ATLAS11_BIT sample it in-kernel (exact 1:1 axis-aligned uv maps —
-    glyphs/unscaled images — validated host-side by mark_atlas11).
-    tile_origin: (x0, y0) f32 scalars of the tile's top-left pixel corner in
-    global frame coordinates, required with atlas_ref.
 
     Returns (r, g, b, a): straight-alpha fragment planes with quad coverage
     and rect-mask applied.
@@ -109,7 +99,7 @@ def eval_quad_planar(fget, mode_packed, px, py, backdrop_planes=None,
 
     def box_dist(qx, qy, bx, by):
         # scalar branch: elliptical decode costs ~2x the circular SDF, so only
-        # the used family is evaluated (lax.cond executes one side on TPU)
+        # the used family is evaluated (lax.cond executes one side)
         return jax.lax.cond(
             elliptical,
             lambda _: sdf.sd_elliptical_rounded_box(qx, qy, bx, by, r_tr, r_br, r_tl, r_bl),
@@ -180,8 +170,12 @@ def eval_quad_planar(fget, mode_packed, px, py, backdrop_planes=None,
         )
         return 1.0 - jnp.clip(aa * bez_sd + 0.5, 0.0, 1.0)
 
-    branch = jnp.where(is_bezier, 2, jnp.where(is_inset, 1, 0))
-    alpha = jax.lax.switch(branch, [alpha_box, alpha_inset, alpha_bezier], None)
+    # nested conds, not lax.switch: the Triton lowering of switch's index
+    # clamp mixes i1 and i32 operands and fails MLIR verification
+    alpha = jax.lax.cond(
+        is_bezier, alpha_bezier,
+        lambda _: jax.lax.cond(is_inset, alpha_inset, alpha_box, None), None,
+    )
 
     # --- fill color (vertex bilinear + linear3), channel-planar ------------------
     def vert_channel(ch, w0, w1, w2, w3):
@@ -245,92 +239,9 @@ def eval_quad_planar(fget, mode_packed, px, py, backdrop_planes=None,
 
         return tuple(fill_channel(ch) for ch in range(4))
 
-    if atlas_ref is None:
-        fr, fg, fb, fa = jax.lax.cond(fm == 0, vertex_fill, gradient3_fill, None)
-        out_r, out_g, out_b = fr, fg, fb
-        out_a = fa * alpha
-    else:
-        # 1:1 atlas quads (bit 13): in-kernel window sample — one
-        # dynamic-offset VMEM load per channel, pltpu.roll realigning the
-        # clamped window, constant-weight bilinear (the GL_LINEAR sample of
-        # atlas.frag:284-295 specialized to the exact-identity uv maps glyph
-        # and unscaled-image quads carry; atlas margin 4 guarantees the +1
-        # bilinear taps stay inside the entry)
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        is_a11 = jax.lax.shift_right_logical(mode_packed, 13) % 2 == 1
-        th, tw = px.shape
-
-        def sdf_eval(_):
-            fr, fg, fb, fa = jax.lax.cond(
-                fm == 0, vertex_fill, gradient3_fill, None
-            )
-            return fr, fg, fb, fa * alpha
-
-        def atlas_eval(_):
-            # texel math uses the REAL atlas size (uv coords are normalized
-            # by it); window placement uses the (possibly padded) buffer —
-            # raster_pallas.atlas_to_planes pads tiny atlases up to the full
-            # window so the window never clamps below (th+8, tw+128): a
-            # 64-px atlas made those sub-tile windows and Mosaic refused the
-            # short lane roll on hardware
-            buf = atlas_ref.shape[1]
-            size = atlas_size or buf
-            shift = fget(QF_SUBPIXEL_SHIFT) if subpixel_positioning else 0.0
-            # texel index at tile pixel (ix, iy): tex*S - 0.5 evaluated at the
-            # +0.5 pixel center — the two halves cancel, leaving a pure
-            # integer-plus-constant offset per axis
-            cx = size * fget(QF_UV3_X) - fget(QF_ORG_X) - shift
-            cy = size * fget(QF_UV3_X + 1) - fget(QF_ORG_Y)
-            bx = tile_origin[0] + cx
-            by = tile_origin[1] + cy
-            ibx = jnp.floor(bx).astype(jnp.int32)
-            iby = jnp.floor(by).astype(jnp.int32)
-            fx = bx - ibx.astype(jnp.float32)
-            fy = by - iby.astype(jnp.float32)
-            # window clamped to the buffer; the roll modulus is the window
-            # size, and quad texels never wrap (their atlas span fits the
-            # clamped window — entries carry a >= 4 px margin)
-            ph = min(-(-(th + 8) // 8) * 8, buf)
-            pw = min(-(-(tw + 128) // 128) * 128, buf)
-            by2 = jnp.clip(iby, 0, buf - ph)
-            bx2 = jnp.clip(ibx, 0, buf - pw)
-            # Mosaic requires dynamic vector-load offsets provably aligned to
-            # the (8, 128) f32 tile; snap the clamped start down in the
-            # (x // A) * A form its divisibility prover recognizes. The snap
-            # slack (<= 7 / <= 127 extra leading rows/lanes) is exactly what
-            # ph = th+8 / pw = tw+128 already reserve beyond the th+1 / tw+1
-            # bilinear span, and th, tw, and atlas sizes are all multiples of
-            # the tile, so the clamp bound size-ph stays aligned too.
-            by2 = (by2 // 8) * 8
-            bx2 = (bx2 // 128) * 128
-            sy = jnp.mod(by2 - iby, ph)  # roll shift realigning clamp + snap
-            sx = jnp.mod(bx2 - ibx, pw)
-            pad_y = max(th + 1 - ph, 0)
-            pad_x = max(tw + 1 - pw, 0)
-            taps = []
-            for ch in range(4):
-                win = atlas_ref[ch, pl.ds(by2, ph), pl.ds(bx2, pw)]
-                win = pltpu.roll(win, sy, 0)
-                win = pltpu.roll(win, sx, 1)
-                if pad_y or pad_x:
-                    # tile larger than the atlas: padding is only ever read
-                    # for pixels outside the quad (alpha-masked)
-                    win = jnp.pad(win, ((0, pad_y), (0, pad_x)), mode="edge")
-                c00 = win[0:th, 0:tw]
-                c10 = win[0:th, 1 : tw + 1]
-                c01 = win[1 : th + 1, 0:tw]
-                c11 = win[1 : th + 1, 1 : tw + 1]
-                top = c00 * (1.0 - fx) + c10 * fx
-                bot = c01 * (1.0 - fx) + c11 * fx
-                taps.append(top * (1.0 - fy) + bot * fy)
-            fr, fg, fb, fa = vertex_fill(None)  # vertex tint (glyph color)
-            return taps[0] * fr, taps[1] * fg, taps[2] * fb, taps[3] * fa
-
-        out_r, out_g, out_b, out_a = jax.lax.cond(
-            is_a11, atlas_eval, sdf_eval, None
-        )
+    fr, fg, fb, fa = jax.lax.cond(fm == 0, vertex_fill, gradient3_fill, None)
+    out_r, out_g, out_b = fr, fg, fb
+    out_a = fa * alpha
 
     if backdrop_planes is not None:
         is_bd = mode == MODE_BACKDROP_BLUR

@@ -1,22 +1,25 @@
-"""Tiled Pallas TPU rasterizer: per-tile ordered alpha compositing.
+"""Tiled Pallas rasterizer (Triton route): per-tile ordered alpha compositing.
 
 The performance path replacing ops/raster_ref.py's whole-frame quad loop —
-the TPU-native analog of the GL fragment pipeline (SURVEY.md §7 step 3):
+the GPU analog of the GL fragment pipeline (SURVEY.md §7 step 3):
 
-  1. bin_quads (XLA) maps quad AABBs to per-tile index lists in draw order
-  2. a Pallas kernel over a (tiles_y, tiles_x) grid walks each tile's binned
-     quads with `lax.fori_loop`, evaluates the SDF fragment math over the
-     (TILE_H, TILE_W) VMEM tile and source-over blends in registers —
-     an ordered loop, not a commutative reduce, preserving GL draw order
-  3. only the final tile color hits HBM once per pass
+  1. bin_quads (XLA) maps quad AABBs to per-bin index lists in draw order
+  2. one Pallas program per (TILE_H, TILE_W) block of the frame walks its
+     bin's quads with `lax.fori_loop`, evaluates the SDF fragment math over
+     the block and source-over blends in registers — an ordered loop, not a
+     commutative reduce, preserving GL draw order
+  3. only the final block color is written back, once per pass
 
-Atlas-sampling modes (0, 13-16) need gathers, which the VPU lacks; the
-renderer routes runs containing them through the XLA path instead (they are
-rare glyph/image quads; the SDF-heavy 300-box benchmark path never leaves
-this kernel).
+Bins may be coarser than the program block (BIN_H x BIN_W): every program
+of a bin reads the same index list and skips, with one scalar bbox test,
+the quads that miss its own block. The tape, the modes and the index lists
+stay in device memory and are read with scalar loads.
 
-Frame layout inside the pass is channel-planar (4, H, W): a trailing RGBA
-dim of 4 would waste 124 of 128 vector lanes.
+Atlas-sampling modes (0, 13-16) need gathers; the executors route runs
+containing them through the XLA windowed evaluator (ops/raster_ref.py).
+
+Frame layout inside the pass is channel-planar (4, H, W), so each plane of
+a block is one contiguous 2-D tensor in registers.
 """
 
 from __future__ import annotations
@@ -26,116 +29,60 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .binning import bin_quads
+from .layout import QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QI_MASK, QI_MODE
 from .quad_eval_planar import eval_quad_planar
-from .layout import QI_MASK, QI_MODE
 
-import os as _os
-
-TILE_H = int(_os.environ.get("FIGDRAW_TILE", "128"))
-# lanes are 128-wide; shrinking the tile height cuts wasted eval area for
-# mid-sized quads without giving up lane occupancy
-TILE_W = int(_os.environ.get("FIGDRAW_TILE_W", "128"))
+# One program rasterizes a (TILE_H, TILE_W) block: Triton wants power-of-two
+# block shapes, and the four f32 colour planes of the block are the loop
+# carry, so the block must fit the register file with room to evaluate.
+TILE_H = 32
+TILE_W = 32
+# Binning granularity (a multiple of the program block). The dense (T, N)
+# argsort in bin_quads grows with the bin count, so bins stay coarser than
+# the program block and several programs share one bin's list.
+BIN_H = 64
+BIN_W = 128
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 # modes that sample the atlas texture: sdfModeAtlas + the MSDF family
 ATLAS_BASE_MODES = (0, 13, 14, 15, 16)
 
 
-def atlas_to_planes(atlas):
-    """(S, S, 4) HWC atlas -> ((4, T, T) channel-planar planes, S).
-
-    T = max(S, 256) so the in-kernel sampling window (th+8 <= 136 rows,
-    tw+128 = 256 lanes) always fits the buffer whole: atlases smaller than
-    a tile would otherwise clamp the window below the tile and hit sub-128
-    lane rolls Mosaic refuses on hardware. Texel math keeps using the REAL
-    size S (returned second); the zero padding is only ever read for
-    pixels outside the quad, which are alpha-masked."""
-    planes = jnp.transpose(atlas, (2, 0, 1))
-    s = planes.shape[1]
-    # round UP to a multiple of 256 (not just a 256 minimum): the window
-    # snap math needs buf - pw divisible by 128 and buf - ph by 8, which a
-    # non-power-of-two atlas (e.g. 320) would break — its snapped window
-    # could exclude the atlas tail and wrap-read wrong texels
-    t = max(-(-s // 256) * 256, 256)
-    if t != s:
-        planes = jnp.pad(planes, ((0, 0), (0, t - s), (0, t - s)))
-    return planes, s
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def run_uses_atlas(modes_np, count: int) -> bool:
-    """Host-side check: does this run need texture gathers? (numpy, pre-upload)"""
-    import numpy as np
-
-    if count <= 0:
-        return False
-    base = modes_np[:count, QI_MODE] % 256
-    base = np.where(base >= 128, base - 128, base)
-    return bool(np.isin(base, ATLAS_BASE_MODES).any())
-
-
-ATLAS11_MAX_SIZE = 512  # whole-atlas VMEM residency cap (4·S²·4B ≤ 4 MB)
-
-
-def mark_atlas11(fields_np, modes_np, count: int, atlas_size: int,
-                 pixelate: bool = False) -> bool:
-    """Host pre-pass: validate every atlas-sampling quad in [0, count) for
-    the in-kernel 1:1 window-sample path and set MODE_ATLAS11_BIT on them
-    (in place, on the padded upload copy). Returns True iff ALL atlas quads
-    qualified. Only consulted under FIGDRAW_ATLAS11=always — the default
-    routes atlas runs to the XLA windowed-gather evaluator, which measured
-    faster on hardware (renderer.execute has the numbers).
-
-    Eligibility (conservative): plain atlas mode 0 (the MSDF family needs
-    the median + screen-px-range path), axis-aligned (no rotation, no uv
-    cross terms), uv scale exactly 1 texel per pixel on both axes (glyph and
-    unscaled-image quads; flipY and scaled draws fail), GL_LINEAR filtering
-    (pixelate uses GL_NEAREST), and an atlas small enough to live in VMEM.
-    The XLA evaluators ignore the bit, so marked quads stay valid on every
-    fallback path.
-    """
-    import numpy as np
-
-    from .layout import (
-        QF_INV_A, QF_INV_B, QF_INV_C, QF_INV_D,
-        QF_UVDU_X, QF_UVDU_Y, QF_UVDV_X, QF_UVDV_Y,
-    )
-    from .quad_eval import MODE_ATLAS11_BIT
-
-    if count <= 0:
+def _interpret(platform: str | None = None) -> bool:
+    """Interpret mode on the CPU (the test path); compiled on the GPU."""
+    platform = platform or jax.default_backend()
+    if platform == "cpu":
         return True
-    m = modes_np[:count, QI_MODE]
-    rest = m % 256
-    base = np.where(rest >= 128, rest - 128, rest)
-    is_atlas = np.isin(base, ATLAS_BASE_MODES)
-    if not is_atlas.any():
-        return True
-    if pixelate or atlas_size > ATLAS11_MAX_SIZE:
+    if platform == "gpu":
         return False
-    f = fields_np[:count]
-    ok = (
-        (base == 0)
-        & (f[:, QF_INV_B] == 0.0)
-        & (f[:, QF_INV_C] == 0.0)
-        & (f[:, QF_UVDU_Y] == 0.0)
-        & (f[:, QF_UVDV_X] == 0.0)
-        & (np.abs(f[:, QF_INV_A] * f[:, QF_UVDU_X] * atlas_size - 1.0) < 1e-4)
-        & (np.abs(f[:, QF_INV_D] * f[:, QF_UVDV_Y] * atlas_size - 1.0) < 1e-4)
+    raise RuntimeError(
+        f"the Pallas rasterizer runs on 'gpu' (Triton) or 'cpu' (interpret "
+        f"mode), not on {platform!r}; use FigRenderer(use_pallas=False)"
     )
-    if not bool((ok | ~is_atlas).all()):
-        return False
-    modes_np[:count, QI_MODE] = np.where(is_atlas, m | MODE_ATLAS11_BIT, m)
-    return True
+
+
+def _compiler_params():
+    return plt.CompilerParams(num_warps=NUM_WARPS, num_stages=NUM_STAGES)
+
+
+def padded_size(height: int, width: int, bin_h: int = BIN_H,
+                bin_w: int = BIN_W):
+    """Frame size rounded up to whole bins (every bin holds whole blocks)."""
+    return -(-height // bin_h) * bin_h, -(-width // bin_w) * bin_w
+
+
+def _bin_of(ty, tx, sub_y: int, sub_x: int, bins_x: int):
+    """Bin holding program block (ty, tx)."""
+    return (ty // sub_y) * bins_x + tx // sub_x
 
 
 def _lower_bound(tidx_ref, count, value):
-    """First position in the tile's (ascending) valid index list with
-    tidx >= value — scalar binary search over SMEM."""
+    """First position in the bin's (ascending) valid index list with
+    tidx >= value — scalar binary search over device memory."""
 
     def cond(c):
         lo, hi = c
@@ -144,7 +91,7 @@ def _lower_bound(tidx_ref, count, value):
     def body(c):
         lo, hi = c
         mid = (lo + hi) // 2
-        v = tidx_ref[0, 0, mid]
+        v = tidx_ref[mid]
         return jax.lax.cond(
             v < value, lambda: (mid + 1, hi), lambda: (lo, mid)
         )
@@ -153,89 +100,99 @@ def _lower_bound(tidx_ref, count, value):
     return lo
 
 
-def _kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref,
-            masks_ref, *rest, tiles_x: int, has_backdrop: bool,
-            mask_target: bool = False, has_atlas: bool = False,
-            subpixel_positioning: bool = False, atlas_size: int = 0,
-            qid_base: int = 0):
-    """seg_ref: (3,) SMEM [start, end, row0]: the [start, end) quad-id range
-    of this draw run (or a range covering everything) plus the global row of
-    tile row 0 (nonzero when this kernel rasterizes one device's row band of
-    a mesh-sharded frame). Within a tile the binned list is ascending, and a
-    run's quads form a contiguous segment of it (runs partition the tape in
-    draw order). qid_base: global quad id of fields_ref row 0 — nonzero when
-    the tape is CHUNKED to fit VMEM (fields_ref is a window; tidx keeps
-    global ids)."""
-    rest = list(rest)
-    backdrop_ref = rest.pop(0) if has_backdrop else None
-    atlas_ref = rest.pop(0) if has_atlas else None
-    (out_ref,) = rest
+def _block_coords(row0, th: int, tw: int):
+    """(x0, y0, px, py): the block's top-left corner in frame coordinates
+    and its (th, tw) pixel-centre grids."""
     ty = pl.program_id(0)
     tx = pl.program_id(1)
-    t = ty * tiles_x + tx
-    count = counts_ref[t]
-    run_start = seg_ref[0]
-    run_end = seg_ref[1]
-    row0 = seg_ref[2]
-    j_lo = _lower_bound(tidx_ref, count, run_start)
-    j_hi = _lower_bound(tidx_ref, count, run_end)
-
-    th, tw = frame_ref.shape[1], frame_ref.shape[2]
     y0 = (row0 + ty * th).astype(jnp.float32)
     x0 = (tx * tw).astype(jnp.float32)
     iy = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0).astype(jnp.float32)
     ix = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1).astype(jnp.float32)
-    py = y0 + iy + 0.5
-    px = x0 + ix + 0.5
+    return x0, y0, x0 + ix + 0.5, y0 + iy + 0.5
+
+
+def _touches_block(fields_ref, qi, x0, y0, th: int, tw: int):
+    """bin_quads's intersection test, at the granularity of one block."""
+    return (
+        (fields_ref[qi, QF_BBOX_X0] < x0 + tw)
+        & (fields_ref[qi, QF_BBOX_X1] > x0)
+        & (fields_ref[qi, QF_BBOX_Y0] < y0 + th)
+        & (fields_ref[qi, QF_BBOX_Y1] > y0)
+    )
+
+
+def _mask_read(masks_ref, mask_i, fa):
+    """fa times mask plane mask_i; plane 0 is all-ones (raster_ref's
+    contract), so the common unmasked quad loads nothing."""
+    return jax.lax.cond(
+        mask_i == 0, lambda: fa, lambda: fa * masks_ref[mask_i]
+    )
+
+
+def _kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref,
+            masks_ref, *rest, sub_y: int, sub_x: int, bins_x: int,
+            has_backdrop: bool, mask_target: bool = False):
+    """seg_ref: (3,) [start, end, row0]: the [start, end) quad-id range of
+    this draw run (or a range covering everything) plus the global row of
+    block row 0 (nonzero when this kernel rasterizes one device's row band
+    of a mesh-sharded frame). Within a bin the binned list is ascending,
+    and a run's quads form a contiguous segment of it (runs partition the
+    tape in draw order)."""
+    rest = list(rest)
+    backdrop_ref = rest.pop(0) if has_backdrop else None
+    (out_ref,) = rest
+    b = _bin_of(pl.program_id(0), pl.program_id(1), sub_y, sub_x, bins_x)
+    count = counts_ref[b]
+    j_lo = _lower_bound(tidx_ref, count, seg_ref[0])
+    j_hi = _lower_bound(tidx_ref, count, seg_ref[1])
+
+    th, tw = frame_ref.shape[1], frame_ref.shape[2]
+    x0, y0, px, py = _block_coords(seg_ref[2], th, tw)
 
     if has_backdrop:
         bd = (backdrop_ref[0], backdrop_ref[1], backdrop_ref[2], backdrop_ref[3])
     else:
         bd = None
 
+    def fetch(j):
+        qi = tidx_ref[j]
+        return qi, (lambda k: fields_ref[qi, k])
+
     if mask_target:
         # mask plane write: m = a^2 + m*(1-a), parent multiply via masks_ref
         # (glsl/mask.frag:233 through the GL blend)
         def body(j, m):
-            qi = tidx_ref[0, 0, j] - qid_base
+            qi, fget = fetch(j)
 
-            def fget(k):
-                return fields_ref[qi, k]
+            def draw(m):
+                _fr, _fg, _fb, fa = eval_quad_planar(
+                    fget, modes_ref[qi, QI_MODE], px, py)
+                fa = _mask_read(masks_ref, modes_ref[qi, QI_MASK], fa)
+                return fa * fa + m * (1.0 - fa)
 
-            mode = modes_ref[qi, QI_MODE]
-            mask_i = modes_ref[qi, QI_MASK]
-            _fr, _fg, _fb, fa = eval_quad_planar(fget, mode, px, py)
-            fa = fa * masks_ref[mask_i]
-            return fa * fa + m * (1.0 - fa)
+            return jax.lax.cond(_touches_block(fields_ref, qi, x0, y0, th, tw),
+                                draw, lambda m: m, m)
 
         out_ref[0] = jax.lax.fori_loop(j_lo, j_hi, body, frame_ref[0])
         return
 
-    # Back-to-front fori source-over. A front-to-back lax.while with a
-    # per-iteration max(transmittance) early-out was MEASURED SLOWER at
-    # every density (300-box 0.59→0.66 ms, 3000-box 1.4→5.9 ms device): the
-    # scalar reduce in the loop condition serializes the vector pipeline,
-    # and the scenes' shadow falloffs keep some pixel's T high enough that
-    # tiles rarely exit early anyway. The fori body has only the
-    # accumulation dependency, which Mosaic pipelines.
+    # back-to-front source-over: the loop body carries only the
+    # accumulation dependency
     def body(j, carry):
-        r, g, b, a = carry
-        qi = tidx_ref[0, 0, j] - qid_base
+        qi, fget = fetch(j)
 
-        def fget(k):
-            return fields_ref[qi, k]
+        def draw(carry):
+            r, g, b, a = carry
+            fr, fg, fb, fa = eval_quad_planar(
+                fget, modes_ref[qi, QI_MODE], px, py, backdrop_planes=bd)
+            fa = _mask_read(masks_ref, modes_ref[qi, QI_MASK], fa)
+            inv = 1.0 - fa
+            return (fr * fa + r * inv, fg * fa + g * inv, fb * fa + b * inv,
+                    fa + a * inv)
 
-        mode = modes_ref[qi, QI_MODE]
-        mask_i = modes_ref[qi, QI_MASK]
-        fr, fg, fb, fa = eval_quad_planar(
-            fget, mode, px, py, backdrop_planes=bd,
-            atlas_ref=atlas_ref, tile_origin=(x0, y0),
-            subpixel_positioning=subpixel_positioning, atlas_size=atlas_size,
-        )
-        fa = fa * masks_ref[mask_i]
-        inv = 1.0 - fa
-        return (fr * fa + r * inv, fg * fa + g * inv, fb * fa + b * inv,
-                fa + a * inv)
+        return jax.lax.cond(_touches_block(fields_ref, qi, x0, y0, th, tw),
+                            draw, lambda c: c, carry)
 
     init = (frame_ref[0], frame_ref[1], frame_ref[2], frame_ref[3])
     r, g, b, a = jax.lax.fori_loop(j_lo, j_hi, body, init)
@@ -245,278 +202,189 @@ def _kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref,
     out_ref[3] = a
 
 
-# Largest quad window one pallas_call holds in VMEM: the whole (N, 68) f32
-# tape + modes + frame/mask tiles must fit the ~16 MB scoped VMEM budget.
-# A 32k-quad tape in one call (8.9 MB of fields) sits exactly at the Mosaic
-# scoped-VMEM cliff (16.28 vs 16.00 MB — compile-variance OOM, then a
-# silent XLA fallback). Bigger tapes run as ceil(N / CHUNK) sequential
-# calls composited in draw order; each extra full-frame pass costs ~2x33 MB
-# of HBM traffic (~0.1 ms) — far cheaper than losing the kernel.
-VMEM_QUAD_CHUNK = int(_os.environ.get("FIGDRAW_VMEM_CHUNK", "8192"))
-# The megakernel cannot chunk (mask planes live in VMEM registers across the
-# whole walk); its whole-tape cap is the largest row count MEASURED to
-# compile reliably (16384 rows = 4.5 MB of fields; 32768 sits on the cliff).
-VMEM_MEGA_ROWS = int(_os.environ.get("FIGDRAW_VMEM_MEGA_ROWS", "16384"))
+def _grid_specs(ph: int, pw: int, bin_h: int, bin_w: int, n: int):
+    """Grid, block map and bin-row spec shared by both kernels."""
+    th, tw = TILE_H, TILE_W
+    assert bin_h % th == 0 and bin_w % tw == 0, (bin_h, bin_w)
+    assert ph % bin_h == 0 and pw % bin_w == 0, (ph, pw, bin_h, bin_w)
+    sub_y, sub_x = bin_h // th, bin_w // tw
+    bins_x = pw // bin_w
+    grid = (ph // th, pw // tw)
 
+    def block_map(ty, tx):
+        return (0, ty, tx)
 
-def _raster_tiles(fields, modes, tile_idx, tile_counts, seg, frame_planes,
-                  masks, backdrop_planes, tiles_y: int, tiles_x: int,
-                  has_backdrop: bool, mask_target: bool = False,
-                  tile_h: int = 0, tile_w: int = 0, atlas_planes=None,
-                  subpixel_positioning: bool = False, atlas_size: int = 0):
-    n = fields.shape[0]
-    out = frame_planes
-    for lo in range(0, n, VMEM_QUAD_CHUNK):
-        hi = min(n, lo + VMEM_QUAD_CHUNK)
-        if lo == 0 and hi == n:
-            seg_k = seg
-        else:
-            seg_k = jnp.stack([
-                jnp.clip(seg[0], lo, hi), jnp.clip(seg[1], lo, hi), seg[2]
-            ])
-        out = _raster_tiles_call(
-            fields[lo:hi], modes[lo:hi], tile_idx, tile_counts, seg_k, out,
-            masks, backdrop_planes, tiles_y, tiles_x, has_backdrop,
-            mask_target=mask_target, tile_h=tile_h, tile_w=tile_w,
-            atlas_planes=atlas_planes,
-            subpixel_positioning=subpixel_positioning, atlas_size=atlas_size,
-            qid_base=lo,
-        )
-    return out
+    tidx_spec = pl.BlockSpec(
+        (None, n), lambda ty, tx: (_bin_of(ty, tx, sub_y, sub_x, bins_x), 0))
+    return grid, block_map, tidx_spec, (sub_y, sub_x, bins_x)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("tiles_y", "tiles_x", "has_backdrop", "mask_target",
-                     "tile_h", "tile_w", "subpixel_positioning", "atlas_size",
-                     "qid_base"),
+    static_argnames=("bin_h", "bin_w", "has_backdrop", "mask_target"),
 )
-def _raster_tiles_call(fields, modes, tile_idx, tile_counts, seg, frame_planes,
-                       masks, backdrop_planes, tiles_y: int, tiles_x: int,
-                       has_backdrop: bool, mask_target: bool = False,
-                       tile_h: int = 0, tile_w: int = 0, atlas_planes=None,
-                       subpixel_positioning: bool = False, atlas_size: int = 0,
-                       qid_base: int = 0):
+def _raster_tiles(fields, modes, tile_idx, tile_counts, seg, frame_planes,
+                  masks, backdrop_planes, bin_h: int, bin_w: int,
+                  has_backdrop: bool, mask_target: bool = False):
     n = fields.shape[0]
+    planes, ph, pw = frame_planes.shape
     n_masks = masks.shape[0]
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
-    planes = frame_planes.shape[0]
-    has_atlas = atlas_planes is not None
-
-    def tile_map(ty, tx, *_refs):
-        return (0, ty, tx)
-
+    th, tw = TILE_H, TILE_W
+    grid, block_map, tidx_spec, (sub_y, sub_x, bins_x) = _grid_specs(
+        ph, pw, bin_h, bin_w, n)
+    whole = pl.BlockSpec()
     in_specs = [
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # fields, whole
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # modes, whole
-        pl.BlockSpec((1, 1, n), lambda ty, tx, *_r: (ty * tiles_x + tx, 0, 0),
-                     memory_space=pltpu.SMEM),  # tile index list row
-        pl.BlockSpec((planes, th, tw), tile_map, memory_space=pltpu.VMEM),  # target tile
-        pl.BlockSpec((n_masks, th, tw), lambda ty, tx, *_r: (0, ty, tx),
-                     memory_space=pltpu.VMEM),  # mask tiles
+        whole,  # tile_counts
+        whole,  # seg
+        whole,  # fields
+        whole,  # modes
+        tidx_spec,  # this block's bin list
+        pl.BlockSpec((planes, th, tw), block_map),  # target block
+        pl.BlockSpec((n_masks, th, tw), block_map),  # mask blocks
     ]
-    inputs = [fields, modes, tile_idx, frame_planes, masks]
+    inputs = [tile_counts, seg, fields, modes, tile_idx, frame_planes, masks]
     if has_backdrop:
-        in_specs.append(
-            pl.BlockSpec((4, th, tw), tile_map, memory_space=pltpu.VMEM)
-        )
+        in_specs.append(pl.BlockSpec((4, th, tw), block_map))
         inputs.append(backdrop_planes)
-    if has_atlas:
-        # whole channel-planar atlas resident in VMEM (gated <= 512 px by the
-        # executor); 1:1 quads window-sample it in-kernel
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-        inputs.append(atlas_planes)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # tile_counts, seg
-        grid=(tiles_y, tiles_x),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((planes, th, tw), tile_map, memory_space=pltpu.VMEM),
-    )
 
     kernel = functools.partial(
-        _kernel, tiles_x=tiles_x, has_backdrop=has_backdrop,
-        mask_target=mask_target, has_atlas=has_atlas,
-        subpixel_positioning=subpixel_positioning, atlas_size=atlas_size,
-        qid_base=qid_base,
+        _kernel, sub_y=sub_y, sub_x=sub_x, bins_x=bins_x,
+        has_backdrop=has_backdrop, mask_target=mask_target,
     )
-    out = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=grid,
+        in_specs=in_specs,
+        out_specs=pl.BlockSpec((planes, th, tw), block_map),
         out_shape=jax.ShapeDtypeStruct(frame_planes.shape, jnp.float32),
+        backend="triton",
+        compiler_params=_compiler_params(),
         interpret=_interpret(),
-    )(tile_counts, seg, *inputs)
-    return out
+        name="figdraw_tile_raster",
+    )(*inputs)
+
+
+def _row0(y_offset):
+    return (
+        jnp.int32(0) if y_offset is None
+        else jnp.asarray(y_offset).astype(jnp.int32)
+    )
+
+
+def _seg3(start, end, y_offset):
+    return jnp.stack([
+        jnp.asarray(start).astype(jnp.int32),
+        jnp.asarray(end).astype(jnp.int32),
+        _row0(y_offset),
+    ])
 
 
 def draw_pass_planar(fields, modes, start, end, frame_planes, masks_p,
                      backdrop_planes=None, y_offset=None,
-                     tile_h: int = 0, tile_w: int = 0,
-                     atlas_planes=None, subpixel_positioning: bool = False,
-                     atlas_size: int = 0):
-    """Planar-layout draw pass over quads [start, end) — the building block the
-    fused frame executor chains inside one jit.
+                     bin_h: int = BIN_H, bin_w: int = BIN_W):
+    """Planar-layout draw pass over quads [start, end) — the building block
+    the fused frame executor chains inside one jit.
 
-    frame_planes: (4, PH, PW) f32 with PH, PW multiples of the tile size;
+    frame_planes: (4, PH, PW) f32 with PH, PW multiples of the bin size;
     masks_p: (K, PH, PW); backdrop_planes: (4, PH, PW) or None. y_offset:
     global row of frame_planes row 0 when row-sharded over a mesh.
     """
-    import os
-
-    if os.environ.get("FIGDRAW_PALLAS_CRASH_TEST") == "1":
-        # fault injection exercising the renderer's XLA fallback
-        # (the reference's -d:vulkanCrashTest analog, siwinshim.nim:769-774)
-        raise RuntimeError("pallas crash test requested")
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
     ph, pw = frame_planes.shape[1], frame_planes.shape[2]
-    assert ph % th == 0 and pw % tw == 0
-    tiles_y = ph // th
-    tiles_x = pw // tw
-
-    row0 = (
-        jnp.int32(0) if y_offset is None
-        else jnp.asarray(y_offset).astype(jnp.int32)
-    )
+    row0 = _row0(y_offset)
     # modes enables opaque occlusion: every quad in this run targets the
-    # frame, so a full-tile opaque quad truncates the tile's list
+    # frame, so a full-bin opaque quad truncates the bin's list
     tile_idx, tile_counts = bin_quads(
-        fields, start, end, tiles_y, tiles_x, th, tw,
+        fields, start, end, ph // bin_h, pw // bin_w, bin_h, bin_w,
         y_offset=row0.astype(jnp.float32), modes=modes,
     )
-    tile_idx = tile_idx[:, None, :]  # (T, 1, N): TPU block dims must tile the last two axes
-
-    seg = jnp.stack([jnp.int32(0), jnp.int32(2**30), row0])  # whole binned list
+    seg = jnp.stack([jnp.int32(0), jnp.int32(2**30), row0])  # whole list
     return _raster_tiles(
         fields, modes, tile_idx, tile_counts, seg, frame_planes, masks_p,
-        backdrop_planes, tiles_y, tiles_x, backdrop_planes is not None,
-        tile_h=th, tile_w=tw, atlas_planes=atlas_planes,
-        subpixel_positioning=subpixel_positioning, atlas_size=atlas_size,
+        backdrop_planes, bin_h=bin_h, bin_w=bin_w,
+        has_backdrop=backdrop_planes is not None,
     )
 
 
 def prebin(fields, n_quads, ph: int, pw: int, y_offset=None,
-           tile_h: int = 0, tile_w: int = 0, modes=None, run_bounds=None,
-           n_runs: int = 0):
+           bin_h: int = BIN_H, bin_w: int = BIN_W, modes=None,
+           run_bounds=None, n_runs: int = 0):
     """Bin the whole tape once; draw runs then select their contiguous
-    per-tile segments in-kernel (runs partition the tape in draw order, and
-    each tile's binned list is ascending). modes + run_bounds (n_runs static)
+    per-bin segments in-kernel (runs partition the tape in draw order, and
+    each bin's list is ascending). modes + run_bounds (n_runs static)
     enable run-scoped opaque-occlusion culling in the same single argsort
     (see binning.bin_quads)."""
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
-    tiles_y = ph // th
-    tiles_x = pw // tw
     y0 = jnp.float32(0) if y_offset is None else y_offset.astype(jnp.float32)
-    tile_idx, tile_counts = bin_quads(
-        fields, jnp.int32(0), n_quads, tiles_y, tiles_x, th, tw, y_offset=y0,
-        modes=modes, run_bounds=run_bounds, n_runs=n_runs,
+    return bin_quads(
+        fields, jnp.int32(0), n_quads, ph // bin_h, pw // bin_w, bin_h, bin_w,
+        y_offset=y0, modes=modes, run_bounds=run_bounds, n_runs=n_runs,
     )
-    return tile_idx[:, None, :], tile_counts
-
-
-def _seg3(start, end, y_offset):
-    row0 = (
-        jnp.int32(0) if y_offset is None
-        else jnp.asarray(y_offset).astype(jnp.int32)
-    )
-    return jnp.stack([
-        jnp.asarray(start).astype(jnp.int32),
-        jnp.asarray(end).astype(jnp.int32),
-        row0,
-    ])
 
 
 def draw_pass_planar_prebinned(fields, modes, start, end, tile_idx, tile_counts,
                                frame_planes, masks_p, backdrop_planes=None,
-                               y_offset=None, tile_h: int = 0, tile_w: int = 0,
-                               atlas_planes=None,
-                               subpixel_positioning: bool = False,
-                               atlas_size: int = 0):
-    import os
-
-    if os.environ.get("FIGDRAW_PALLAS_CRASH_TEST") == "1":
-        # fault injection exercising the renderer's XLA fallback
-        raise RuntimeError("pallas crash test requested")
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
-    ph, pw = frame_planes.shape[1], frame_planes.shape[2]
+                               y_offset=None, bin_h: int = BIN_H,
+                               bin_w: int = BIN_W):
     return _raster_tiles(
         fields, modes, tile_idx, tile_counts, _seg3(start, end, y_offset),
-        frame_planes, masks_p, backdrop_planes, ph // th, pw // tw,
-        backdrop_planes is not None, tile_h=th, tile_w=tw,
-        atlas_planes=atlas_planes, subpixel_positioning=subpixel_positioning,
-        atlas_size=atlas_size,
+        frame_planes, masks_p, backdrop_planes, bin_h=bin_h, bin_w=bin_w,
+        has_backdrop=backdrop_planes is not None,
     )
 
 
 def draw_pass_mask_prebinned(fields, modes, start, end, tile_idx, tile_counts,
                              mask_plane, masks_p, y_offset=None,
-                             tile_h: int = 0, tile_w: int = 0):
+                             bin_h: int = BIN_H, bin_w: int = BIN_W):
     """Binned mask-plane write (a^2 + m(1-a) blend); mask_plane: (1, PH, PW)."""
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
-    ph, pw = mask_plane.shape[1], mask_plane.shape[2]
     return _raster_tiles(
         fields, modes, tile_idx, tile_counts, _seg3(start, end, y_offset),
-        mask_plane, masks_p, None, ph // th, pw // tw, False,
-        mask_target=True, tile_h=th, tile_w=tw,
+        mask_plane, masks_p, None, bin_h=bin_h, bin_w=bin_w,
+        has_backdrop=False, mask_target=True,
     )
 
 
 # --- megakernel: the whole multi-pass frame as ONE tile walk ---------------------
 #
 # Mask-heavy scenes (one clip per table cell — the reference's
-# windy_clip_mask_benchmark) cost one full-frame Pallas pass per draw run and
-# per mask write in the rolled executor: ~3 passes per cell, each DMAing every
-# frame tile through VMEM. The megakernel removes the pass structure entirely:
-# the executor bakes each quad's TARGET (frame or mask plane k) and the
+# windy_clip_mask_benchmark) cost one full-frame pass per draw run and per
+# mask write in the rolled executor: ~3 passes per cell, each reading and
+# writing every frame block. The megakernel removes the pass structure: the
+# executor bakes each quad's TARGET (frame or mask plane k) and the
 # clear-mask boundaries into the mode lane's high bits, and one kernel walks
-# each tile's binned quads once in tape order, holding the frame AND the mask
-# planes in VMEM registers. Per-tile cost is proportional to the quads that
-# touch the tile; HBM traffic is one frame read + one write, independent of
-# how many masks the scene uses.
+# each block's binned quads once in tape order, holding the frame AND the
+# mask planes in registers. Device-memory traffic is one frame read + one
+# write, independent of how many masks the scene uses.
 #
 # Mode-lane packing (host side, executor.pack_mega_modes):
 #   bits  0-11  sdf mode (mode + 128*elliptical + 256*fillMode, < 4096)
-#   bit     12  clear-mask sentinel (fields row carries a full-frame bbox)
+#   bit     12  clear-mask sentinel (fields row carries the cleared bbox)
 #   bits 16+    target + 1 (0 = frame, k+1 = mask plane k)
 
 MEGA_CLEAR_BIT = 1 << 12
 MEGA_TARGET_SHIFT = 16
 MEGA_MODE_MASK = 0xFFF
-# bits passed through to the evaluator: the 0xFFF packed mode + the 1:1
-# atlas-sample flag (bit 13, quad_eval.MODE_ATLAS11_BIT); the clear bit (12)
-# and target bits (16+) stay kernel-internal
-MEGA_EVAL_MASK = 0x2FFF
+# Mask planes the megakernel carries in registers next to the four colour
+# planes. Frames with more planes take the rolled executor, chosen by shape
+# when the frame is planned (renderer._plan_execution, native.flatten_fast).
+MEGA_MAX_MASKS = 8
 
 
-def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref,
-                 *rest, tiles_x: int, n_masks: int, has_atlas: bool = False,
-                 subpixel_positioning: bool = False, atlas_size: int = 0):
-    rest = list(rest)
-    atlas_ref = rest.pop(0) if has_atlas else None
-    (out_ref,) = rest
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    t = ty * tiles_x + tx
-    count = counts_ref[t]
-    row0 = seg_ref[0]  # global row of tile row 0 (row-sharded bands)
+def mega_fits(n_masks: int) -> bool:
+    """Whether a frame with n_masks planes (incl. the all-pass plane 0)
+    takes the megakernel."""
+    return n_masks <= MEGA_MAX_MASKS
 
+
+def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref,
+                 frame_ref, out_ref, *, sub_y: int, sub_x: int, bins_x: int,
+                 n_masks: int):
+    b = _bin_of(pl.program_id(0), pl.program_id(1), sub_y, sub_x, bins_x)
+    count = counts_ref[b]
     th, tw = frame_ref.shape[1], frame_ref.shape[2]
-    y0 = (row0 + ty * th).astype(jnp.float32)
-    x0 = (tx * tw).astype(jnp.float32)
-    iy = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0).astype(jnp.float32)
-    ix = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1).astype(jnp.float32)
-    py = y0 + iy + 0.5
-    px = x0 + ix + 0.5
+    x0, y0, px, py = _block_coords(seg_ref[0], th, tw)
 
     # mask planes live as n_masks SEPARATE (th, tw) registers in the carry:
     # n_masks is static, so plane selection is a lax.switch over the scalar
-    # plane index — one branch executes — instead of (n_masks, th, tw)
-    # compare/select/sum sweeps per quad (which cost ~3*n_masks tile-ops on
-    # every quad of a masked scene)
+    # plane index — one branch executes
     ones = jnp.ones((th, tw), jnp.float32)
     zeros = jnp.zeros((th, tw), jnp.float32)
     masks0 = (ones,) + (zeros,) * (n_masks - 1)  # plane 0 = all-pass parent
@@ -544,13 +412,11 @@ def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref
         )
 
     def body(j, carry):
-        r, g, b, a, *masks = carry
-        masks = tuple(masks)
-        qi = tidx_ref[0, 0, j]
+        qi = tidx_ref[j]
         raw = modes_ref[qi, QI_MODE]
         tgt_enc = jax.lax.shift_right_logical(raw, MEGA_TARGET_SHIFT)
         is_clear = jax.lax.shift_right_logical(raw, 12) & 1
-        mode = raw & MEGA_EVAL_MASK
+        mode = raw & MEGA_MODE_MASK
         mask_i = modes_ref[qi, QI_MASK]
 
         def clear_branch(c):
@@ -560,16 +426,8 @@ def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref
         def draw_branch(c):
             r, g, b, a, *masks = c
             masks = tuple(masks)
-
-            def fget(k):
-                return fields_ref[qi, k]
-
             fr, fg, fb, fa = eval_quad_planar(
-                fget, mode, px, py,
-                atlas_ref=atlas_ref, tile_origin=(x0, y0),
-                subpixel_positioning=subpixel_positioning,
-                atlas_size=atlas_size,
-            )
+                lambda k: fields_ref[qi, k], mode, px, py)
             fa = fa * _plane(masks, mask_i)
 
             def to_frame(_):
@@ -585,7 +443,11 @@ def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref
 
             return jax.lax.cond(tgt_enc == 0, to_frame, to_mask, None)
 
-        return jax.lax.cond(is_clear == 1, clear_branch, draw_branch, carry)
+        def step(c):
+            return jax.lax.cond(is_clear == 1, clear_branch, draw_branch, c)
+
+        return jax.lax.cond(_touches_block(fields_ref, qi, x0, y0, th, tw),
+                            step, lambda c: c, carry)
 
     init = (frame_ref[0], frame_ref[1], frame_ref[2], frame_ref[3]) + masks0
     r, g, b, a, *_masks = jax.lax.fori_loop(jnp.int32(0), count, body, init)
@@ -595,106 +457,66 @@ def _mega_kernel(counts_ref, seg_ref, fields_ref, modes_ref, tidx_ref, frame_ref
     out_ref[3] = a
 
 
-@functools.partial(
-    jax.jit, static_argnames=("tiles_y", "tiles_x", "n_masks", "tile_h", "tile_w",
-                              "subpixel_positioning", "atlas_size")
-)
+@functools.partial(jax.jit, static_argnames=("n_masks", "bin_h", "bin_w"))
 def _raster_mega(fields, modes, tile_idx, tile_counts, seg, frame_planes,
-                 tiles_y: int, tiles_x: int, n_masks: int,
-                 tile_h: int = 0, tile_w: int = 0, atlas_planes=None,
-                 subpixel_positioning: bool = False, atlas_size: int = 0):
+                 n_masks: int, bin_h: int, bin_w: int):
     n = fields.shape[0]
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
-    has_atlas = atlas_planes is not None
-
-    def tile_map(ty, tx, *_refs):
-        return (0, ty, tx)
-
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # fields
-        pl.BlockSpec(memory_space=pltpu.VMEM),  # modes
-        pl.BlockSpec((1, 1, n), lambda ty, tx, *_r: (ty * tiles_x + tx, 0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((4, th, tw), tile_map, memory_space=pltpu.VMEM),
-    ]
-    inputs = [fields, modes, tile_idx, frame_planes]
-    if has_atlas:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-        inputs.append(atlas_planes)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # tile_counts, seg (row0)
-        grid=(tiles_y, tiles_x),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((4, th, tw), tile_map, memory_space=pltpu.VMEM),
-    )
+    _planes, ph, pw = frame_planes.shape
+    grid, block_map, tidx_spec, (sub_y, sub_x, bins_x) = _grid_specs(
+        ph, pw, bin_h, bin_w, n)
+    whole = pl.BlockSpec()
     kernel = functools.partial(
-        _mega_kernel, tiles_x=tiles_x, n_masks=n_masks, has_atlas=has_atlas,
-        subpixel_positioning=subpixel_positioning, atlas_size=atlas_size,
+        _mega_kernel, sub_y=sub_y, sub_x=sub_x, bins_x=bins_x,
+        n_masks=n_masks,
     )
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=grid,
+        in_specs=[
+            whole, whole, whole, whole, tidx_spec,
+            pl.BlockSpec((4, TILE_H, TILE_W), block_map),
+        ],
+        out_specs=pl.BlockSpec((4, TILE_H, TILE_W), block_map),
         out_shape=jax.ShapeDtypeStruct(frame_planes.shape, jnp.float32),
+        backend="triton",
+        compiler_params=_compiler_params(),
         interpret=_interpret(),
-    )(tile_counts, seg, *inputs)
+        name="figdraw_mega_raster",
+    )(tile_counts, seg, fields, modes, tile_idx, frame_planes)
 
 
 def draw_pass_mega(fields, modes, frame_planes, n_masks: int, y_offset=None,
-                   tile_h: int = 0, tile_w: int = 0, atlas_planes=None,
-                   subpixel_positioning: bool = False, atlas_size: int = 0):
+                   bin_h: int = BIN_H, bin_w: int = BIN_W):
     """One-kernel whole frame over target-baked modes; frame_planes (4, PH, PW)."""
-    import os
-
-    if os.environ.get("FIGDRAW_PALLAS_CRASH_TEST") == "1":
-        # fault injection exercising the renderer's XLA fallback
-        raise RuntimeError("pallas crash test requested")
-    th = tile_h or TILE_H
-    tw = tile_w or TILE_W
+    if not mega_fits(n_masks):
+        raise ValueError(
+            f"{n_masks} mask planes exceed the megakernel's register budget "
+            f"({MEGA_MAX_MASKS}); plan the frame on the rolled executor")
     ph, pw = frame_planes.shape[1], frame_planes.shape[2]
     tile_idx, tile_counts = prebin(
         fields, jnp.int32(fields.shape[0]), ph, pw, y_offset=y_offset,
-        tile_h=th, tile_w=tw,
-    )
-    row0 = (
-        jnp.int32(0) if y_offset is None
-        else jnp.asarray(y_offset).astype(jnp.int32)
+        bin_h=bin_h, bin_w=bin_w,
     )
     return _raster_mega(
-        fields, modes, tile_idx, tile_counts, row0[None], frame_planes,
-        ph // th, pw // tw, n_masks, tile_h=th, tile_w=tw,
-        atlas_planes=atlas_planes, subpixel_positioning=subpixel_positioning,
-        atlas_size=atlas_size,
+        fields, modes, tile_idx, tile_counts, _row0(y_offset)[None],
+        frame_planes, n_masks=n_masks, bin_h=bin_h, bin_w=bin_w,
     )
 
 
-def draw_pass_frame(fields, modes, count, frame, masks, atlas=None, backdrop=None,
-                    subpixel_positioning: bool = False):
-    """(H, W, 4)-layout convenience wrapper around draw_pass_planar."""
+def draw_pass_frame(fields, modes, count, frame, masks, backdrop=None):
+    """(H, W, 4)-layout convenience wrapper around draw_pass_planar: pads
+    the frame to whole bins, rasterizes, crops."""
     height, width = frame.shape[0], frame.shape[1]
-    tiles_y = -(-height // TILE_H)
-    tiles_x = -(-width // TILE_W)
-    ph = tiles_y * TILE_H
-    pw = tiles_x * TILE_W
+    ph, pw = padded_size(height, width)
+    pad = ((0, 0), (0, ph - height), (0, pw - width))
 
-    frame_planes = jnp.transpose(frame, (2, 0, 1))
-    if (ph, pw) != (height, width):
-        frame_planes = jnp.pad(frame_planes, ((0, 0), (0, ph - height), (0, pw - width)))
-        masks_p = jnp.pad(masks, ((0, 0), (0, ph - height), (0, pw - width)))
-    else:
-        masks_p = masks
-
-    if backdrop is not None:
-        backdrop_planes = jnp.transpose(backdrop, (2, 0, 1))
-        if (ph, pw) != (height, width):
-            backdrop_planes = jnp.pad(
-                backdrop_planes, ((0, 0), (0, ph - height), (0, pw - width))
-            )
-    else:
-        backdrop_planes = None
-
+    frame_planes = jnp.pad(jnp.transpose(frame, (2, 0, 1)), pad)
+    masks_p = jnp.pad(masks, pad)
+    backdrop_planes = (
+        None if backdrop is None
+        else jnp.pad(jnp.transpose(backdrop, (2, 0, 1)), pad)
+    )
     out = draw_pass_planar(
         fields, modes, jnp.int32(0), count, frame_planes, masks_p, backdrop_planes
     )
-    out = out[:, :height, :width]
-    return jnp.transpose(out, (1, 2, 0))
+    return jnp.transpose(out[:, :height, :width], (1, 2, 0))

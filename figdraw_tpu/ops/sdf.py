@@ -1,10 +1,10 @@
 """Signed-distance-field primitives in JAX.
 
-TPU port of the reference's GLSL SDF library
+JAX port of the reference's GLSL SDF library
 (/root/reference/src/figdraw/opengl/glsl/atlas.frag:41-216). Every function is
 pure jnp and shape-polymorphic: scalars broadcast over whatever pixel-grid
-shape the caller evaluates (a full frame in the reference rasterizer, a VMEM
-tile inside the Pallas kernel).
+shape the caller evaluates (a full frame in the reference rasterizer, a
+block inside the Pallas kernel).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def sd_elliptical_rounded_box(px, py, bx, by, r_tr, r_br, r_tl, r_bl):
 
 def _acos(x):
     """Polynomial acos (Abramowitz & Stegun 4.4.45, |err| < 6.7e-5 rad) —
-    neither arccos nor atan2 lower in Pallas TPU."""
+    keeps the kernels to elementwise arithmetic every Pallas route lowers."""
     xc = jnp.clip(x, -1.0, 1.0)
     a = jnp.abs(xc)
     poly = 1.5707288 + a * (-0.2121144 + a * (0.0742610 + a * (-0.0187293)))
@@ -110,7 +110,8 @@ def _acos(x):
 
 
 def _cbrt(x):
-    """Signed cube root via exp/log — jnp.cbrt has no Pallas TPU lowering."""
+    """Signed cube root via exp/log — elementwise ops every Pallas route
+    lowers."""
     ax = jnp.abs(x)
     r = jnp.exp(jnp.log(jnp.maximum(ax, 1e-30)) / 3.0)
     return jnp.where(ax < 1e-30, 0.0, jnp.sign(x) * r)

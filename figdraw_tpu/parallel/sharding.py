@@ -1,13 +1,15 @@
 """Multi-chip scale-out: tile-space sharding of the rasterizer over a Mesh.
 
-The reference has no distributed axis (SURVEY.md §2.9); its TPU-native
+The reference has no distributed axis (SURVEY.md §2.9); this renderer's
 scale-out is framebuffer decomposition: shard frame rows across devices with
-`shard_map`, broadcast the (small) quad tape, and let every chip rasterize
+`shard_map`, broadcast the (small) quad tape, and let every device rasterize
 its own rows. No collectives are needed in the draw pass — each row band is
-independent — so the whole frame scales linearly over ICI until the tape
-broadcast dominates. Backdrop blur's vertical pass is the one cross-band
-dependency; the sharded executor handles it with a halo exchange via
-jax.lax.ppermute (neighbor rows only, 2×64 px per boundary).
+independent — so the whole frame scales with the device count until the
+tape broadcast dominates. Backdrop blur's vertical pass is the one
+cross-band dependency; the sharded executor handles it with a halo exchange
+via jax.lax.ppermute (neighbor rows only, 2×64 px per boundary). The mesh is
+flat and 1-D: on one host the GPUs reach each other over NVLink at the same
+rate, so no device order is better than another.
 """
 
 from __future__ import annotations
@@ -19,15 +21,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.8: check_rep became check_vma (varying-manual-axes tracking)
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f=None, **kw):
-        if kw.pop("check_rep", None) is False:
-            kw["check_vma"] = False
-        return _new_shard_map(f, **kw) if f is not None else _new_shard_map(**kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import raster_ref
 from ..ops.blur import _blur_axis
@@ -55,7 +49,7 @@ def make_sharded_draw_pass(mesh: Mesh, subpixel_positioning: bool = False):
             P(ROWS_AXIS, None, None),  # backdrop rows
         ),
         out_specs=P(ROWS_AXIS, None, None),
-        check_rep=False,
+        check_vma=False,
     )
     def draw(fields, modes, count, frame, masks, backdrop):
         local_h = frame.shape[0]
@@ -90,7 +84,7 @@ def make_sharded_blur(mesh: Mesh, max_radius: float = 64.0):
         mesh=mesh,
         in_specs=(P(ROWS_AXIS, None, None), P()),
         out_specs=P(ROWS_AXIS, None, None),
-        check_rep=False,
+        check_vma=False,
     )
     def blur(frame, radius):
         local = _blur_axis(frame, radius, axis=1)  # horizontal, local
@@ -131,35 +125,32 @@ def default_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 # --- sharded fused executor ------------------------------------------------------
 #
-# The multi-chip PERFORMANCE path (round-2 verdict item 2): the whole frame —
-# Pallas band rasterization, mask-plane writes, halo-exchange backdrop blur,
-# windowed atlas draws — runs inside ONE jitted shard_map. One replicated tape
-# upload (executor.pack_tape_upload), one dispatch per frame, each chip owning
-# a contiguous row band. This replaces the round-1 per-item XLA dispatch loop
-# that bypassed the Pallas/megakernel stack entirely.
+# The multi-device PERFORMANCE path: the whole frame — Pallas band
+# rasterization, mask-plane writes, halo-exchange backdrop blur, windowed
+# atlas draws — runs inside ONE jitted shard_map. One replicated tape upload
+# (executor.pack_tape_upload), one dispatch per frame, each device owning a
+# contiguous row band.
 #
-# Band geometry: each device's band is padded to a multiple of the shard tile
-# height (default 8 — the f32 VMEM sublane minimum — so padding stays under
-# one tile row per band). Rows past the true frame height render normally and
-# are cropped off; tile (8, 128) keeps per-band Pallas grids dense for the
-# 135-row bands a 1080p/8-chip split produces.
+# Band geometry: each device's band is padded to a multiple of the shard bin
+# height — one program block (raster_pallas.TILE_H) — so padding stays under
+# one block row per band. Rows past the true frame height render normally
+# and are cropped off.
 
-import os as _os
-
-SHARD_TILE_H = int(_os.environ.get("FIGDRAW_SHARD_TILE", "8"))
-SHARD_TILE_W = 128
 BLUR_HALO = 65  # radius clamp 64 (blur.frag:12) + 1 for the linear tap lerp
 
 
 def _band_geometry(mesh: Mesh, height: int, width: int):
+    """(n, bin_h, bin_w, band rows, global padded rows, padded width)."""
+    from ..ops import raster_pallas
+
     n = mesh.shape[ROWS_AXIS]
-    th = SHARD_TILE_H
-    tw = SHARD_TILE_W
+    bh = raster_pallas.TILE_H
+    bw = raster_pallas.BIN_W
     band = -(-height // n)
-    pband = max(-(-band // th) * th, th)
+    pband = max(-(-band // bh) * bh, bh)
     gh = pband * n
-    pw = -(-width // tw) * tw
-    return n, th, tw, pband, gh, pw
+    pw = -(-width // bw) * bw
+    return n, bh, bw, pband, gh, pw
 
 
 def _banded_blur_planar(local, radius, axis_size: int, halo: int = BLUR_HALO):
@@ -247,12 +238,12 @@ def get_sharded_frame_executor(
 
         if use_pallas:
             # bin the whole tape once per band; runs select their segments.
-            # run-scoped occlusion culling, same as the single-chip executor
+            # run-scoped occlusion culling, same as the single-device executor
             frame_draw_pos = [
                 di_ for di_, item in enumerate(
                     [it for it in structure if it[0] == "draw"]
                 )
-                if ex._draw_flags(item)[0] == ex.FRAME_TARGET
+                if item[1] == ex.FRAME_TARGET
             ]
             rb = (
                 bounds[jnp.asarray(frame_draw_pos, jnp.int32)]
@@ -260,16 +251,10 @@ def get_sharded_frame_executor(
             )
             tile_idx, tile_counts = raster_pallas.prebin(
                 fields, jnp.int32(fields.shape[0]), pband, pw,
-                y_offset=row0, tile_h=th, tile_w=tw,
+                y_offset=row0, bin_h=th, bin_w=tw,
                 modes=modes if frame_draw_pos else None, run_bounds=rb,
                 n_runs=len(frame_draw_pos),
             )
-        atlas_planes = None
-        atlas_real = 0
-        if use_pallas and any(
-            item[0] == "draw" and ex._draw_flags(item)[3] for item in structure
-        ):
-            atlas_planes, atlas_real = raster_pallas.atlas_to_planes(atlas)
 
         di = 0
         bi = 0
@@ -281,20 +266,17 @@ def get_sharded_frame_executor(
                 backdrop = _banded_blur_planar(planes, radii[bi], n_dev)
                 bi += 1
             else:
-                target, uses_atlas, needs_backdrop, atlas11 = ex._draw_flags(item)
+                _, target, uses_atlas, needs_backdrop = item
                 s = bounds[di, 0]
                 e = bounds[di, 1]
                 di += 1
                 if target == ex.FRAME_TARGET:
-                    if use_pallas and (not uses_atlas or atlas11):
+                    if use_pallas and not uses_atlas:
                         planes = raster_pallas.draw_pass_planar_prebinned(
                             fields, modes, s, e, tile_idx, tile_counts,
                             planes, masks,
                             backdrop if needs_backdrop else None,
-                            y_offset=row0, tile_h=th, tile_w=tw,
-                            atlas_planes=atlas_planes if atlas11 else None,
-                            subpixel_positioning=subpixel_positioning,
-                            atlas_size=atlas_real if atlas11 else 0,
+                            y_offset=row0, bin_h=th, bin_w=tw,
                         )
                     else:
                         hwc = to_hwc(planes)
@@ -318,7 +300,7 @@ def get_sharded_frame_executor(
                         plane = raster_pallas.draw_pass_mask_prebinned(
                             fields, modes, s, e, tile_idx, tile_counts,
                             masks[target][None], masks,
-                            y_offset=row0, tile_h=th, tile_w=tw,
+                            y_offset=row0, bin_h=th, bin_w=tw,
                         )[0]
                     else:
                         plane = raster_ref.draw_pass_mask_range(
@@ -336,7 +318,7 @@ def get_sharded_frame_executor(
         mesh=mesh,
         in_specs=(P(), init_spec, P()),
         out_specs=P(ROWS_AXIS, None, None),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded), (gh, pw)
 
@@ -344,18 +326,16 @@ def get_sharded_frame_executor(
 @lru_cache(maxsize=32)
 def get_sharded_mega_executor(
     mesh: Mesh, height: int, width: int, n_masks: int, has_init_frame: bool,
-    has_atlas: bool = False, subpixel_positioning: bool = False,
 ):
     """Mesh-sharded megakernel (executor.get_mega_executor): ONE Pallas tile
-    walk per row band over target-baked modes; 1:1 atlas quads sample the
-    replicated VMEM atlas in-kernel. Returns (run, (gh, pw))."""
+    walk per row band over target-baked modes. Returns (run, (gh, pw))."""
     from .. import executor as ex
     from ..ops import raster_pallas
     from ..ops.layout import QF_WIDTH
 
     n_dev, th, tw, pband, gh, pw = _band_geometry(mesh, height, width)
 
-    def run_local(combo, init_frame, atlas=None):
+    def run_local(combo, init_frame):
         fields = combo[:-1, :QF_WIDTH]
         modes = jax.lax.bitcast_convert_type(
             combo[:-1, QF_WIDTH : QF_WIDTH + ex.COMBO_EXTRA], jnp.int32
@@ -368,41 +348,34 @@ def get_sharded_mega_executor(
             planes = jnp.broadcast_to(
                 clear_color[:, None, None], (4, pband, pw)
             ).astype(jnp.float32)
-        if has_atlas:
-            atlas_planes, atlas_real = raster_pallas.atlas_to_planes(atlas)
-        else:
-            atlas_planes, atlas_real = None, 0
         planes = raster_pallas.draw_pass_mega(
             fields, modes, planes, n_masks,
-            y_offset=row0, tile_h=th, tile_w=tw,
-            atlas_planes=atlas_planes,
-            subpixel_positioning=subpixel_positioning,
-            atlas_size=atlas_real,
+            y_offset=row0, bin_h=th, bin_w=tw,
         )
         return jnp.transpose(planes, (1, 2, 0))
 
     init_spec = P(ROWS_AXIS, None, None) if has_init_frame else P()
-    in_specs = (P(), init_spec) + ((P(),) if has_atlas else ())
     sharded = shard_map(
         run_local,
         mesh=mesh,
-        in_specs=in_specs,
+        in_specs=(P(), init_spec),
         out_specs=P(ROWS_AXIS, None, None),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded), (gh, pw)
 
 
 class ShardedFigRenderer:
-    """Multi-chip frame renderer: the framebuffer row-sharded over a Mesh.
+    """Multi-device frame renderer: the framebuffer row-sharded over a Mesh.
 
     The host flatten is unchanged (the quad tape is small and replicated);
     each device rasterizes its row band through the SAME performance stack as
-    the single-chip renderer — Pallas tile kernels (or the megakernel for
+    the single-device renderer — Pallas tile kernels (or the megakernel for
     mask-heavy pure-SDF scenes), one packed tape upload, the whole pass chain
-    in one jitted shard_map — with backdrop blur exchanging halo rows over
-    ICI. Scales the reference's pixel-parallel fragment work across chips —
-    the axis the reference's single-GPU design never had (SURVEY.md §2.9).
+    in one jitted shard_map — with backdrop blur exchanging halo rows between
+    neighbouring bands. Scales the reference's pixel-parallel fragment work
+    across devices — the axis the reference's single-GPU design never had
+    (SURVEY.md §2.9).
     """
 
     def __init__(
@@ -426,7 +399,7 @@ class ShardedFigRenderer:
             override = config.runtime_backend_override()
             use_pallas = (
                 override if override is not None
-                else jax.default_backend() == "tpu"
+                else jax.default_backend() == "gpu"
             )
         self.use_pallas = use_pallas
         self.last_frame = None
@@ -483,39 +456,23 @@ class ShardedFigRenderer:
         fields[: tape.count] = tape.fields[: tape.count]
         modes[: tape.count] = tape.modes[: tape.count]
 
-        from ..config import atlas11_policy
-        from ..ops.raster_pallas import mark_atlas11
+        from ..ops.raster_pallas import mega_fits
 
-        # same measured policy as FigRenderer.execute: atlas quads default to
-        # the XLA windowed-gather evaluator; FIGDRAW_ATLAS11=always re-enables
-        # the in-kernel VMEM-atlas sampler
-        pallas_atlas_ok = (
-            self.use_pallas
-            and atlas11_policy() == "always"
-            and mark_atlas11(
-                fields, modes, tape.count, self._flattener.atlas.size,
-                self._flattener.pixelate,
-            )
-        )
         structure, bounds, radii, is_atlas_mode, is_backdrop_mode = (
             ex.tape_structure(tape, modes)
         )
-        structure = [
-            item if item[0] != "draw"
-            else item + (bool(item[2] and pallas_atlas_ok),)
-            for item in structure
-        ]
         seen_blur = any(item[0] == "blur" for item in structure)
         has_init_frame = tape.clear_color is None
         clear = np.asarray(tape.clear_color or (0, 0, 0, 0), dtype=np.float32)
 
-        mega_atlas = bool(is_atlas_mode[: tape.count].any())
+        # same choice by shape as FigRenderer._plan_execution
         mega = (
             len(structure) > ROLLED_THRESHOLD
             and self.use_pallas
             and not seen_blur
-            and (not mega_atlas or pallas_atlas_ok)
+            and not bool(is_atlas_mode[: tape.count].any())
             and not bool(is_backdrop_mode[: tape.count].any())
+            and mega_fits(n_masks)
         )
         mega_combo = None
         if mega:
@@ -537,7 +494,7 @@ class ShardedFigRenderer:
             n_pad=n, fields=fields, modes=modes,
             bounds=np.asarray(bounds, dtype=np.int32).reshape(-1, 2),
             radii=np.asarray(radii, dtype=np.float32),
-            mega=mega, mega_atlas=mega_atlas, mega_combo=mega_combo,
+            mega=mega, mega_combo=mega_combo,
             combo=None,
         )
 
@@ -554,69 +511,28 @@ class ShardedFigRenderer:
 
     def _dispatch(self, plan) -> jnp.ndarray:
         """Device half: upload the plan's combo and run the sharded executor
-        with the mega → pass-chain fallback."""
-        if plan.mega and self.use_pallas:
+        the plan chose."""
+        if plan.mega:
             run, (gh, pw) = get_sharded_mega_executor(
                 self.mesh, plan.height, plan.width, plan.n_masks,
-                plan.has_init_frame, has_atlas=plan.mega_atlas,
-                subpixel_positioning=self._flattener.text_subpixel_positioning,
+                plan.has_init_frame,
             )
-            try:
-                mega_args = (
-                    jnp.asarray(plan.mega_combo),
-                    self._init_frame(gh, pw, plan.has_init_frame),
-                ) + (
-                    (self._flattener._device_atlas(),)
-                    if plan.mega_atlas
-                    else ()
-                )
-                frame = run(*mega_args)
-                self._last_padded = frame
-                self.last_frame = frame[: plan.height, : plan.width]
-                return self.last_frame
-            except Exception as exc:
-                from ..utils.perf import log_kv
-                import logging
-
-                log_kv(
-                    logging.WARNING,
-                    "sharded mega rasterizer failed; falling back",
-                    error=repr(exc),
-                )
-                self.use_pallas = False
-
-        combo = self._frame_combo(plan)
-
-        def make_run(use_pallas):
-            return get_sharded_frame_executor(
+            frame = run(
+                jnp.asarray(plan.mega_combo),
+                self._init_frame(gh, pw, plan.has_init_frame),
+            )
+        else:
+            run, (gh, pw) = get_sharded_frame_executor(
                 self.mesh, tuple(plan.structure), plan.height, plan.width,
-                plan.n_masks, use_pallas,
+                plan.n_masks, self.use_pallas,
                 self._flattener.text_subpixel_positioning,
                 plan.has_init_frame, self._flattener.pixelate,
             )
-
-        run, (gh, pw) = make_run(self.use_pallas)
-        args = (
-            jnp.asarray(combo),
-            self._init_frame(gh, pw, plan.has_init_frame),
-            self._flattener._device_atlas(),
-        )
-        try:
-            frame = run(*args)
-        except Exception as exc:
-            if not self.use_pallas:
-                raise
-            from ..utils.perf import log_kv
-            import logging
-
-            log_kv(
-                logging.WARNING,
-                "sharded pallas rasterizer failed; falling back to XLA",
-                error=repr(exc),
+            frame = run(
+                jnp.asarray(self._frame_combo(plan)),
+                self._init_frame(gh, pw, plan.has_init_frame),
+                self._flattener._device_atlas(),
             )
-            self.use_pallas = False
-            run, _ = make_run(False)
-            frame = run(*args)
         self._last_padded = frame
         self.last_frame = frame[: plan.height, : plan.width]
         return self.last_frame
@@ -628,8 +544,8 @@ class ShardedFigRenderer:
                        animate=False):
         """Flatten once (saturation cull OFF — panning can reveal culled
         quads) and park the replicated combo on the mesh; render_view then
-        scrolls/zooms it row-sharded across chips for pure kernel + ICI
-        cost — the multi-chip twin of FigRenderer.snapshot_scene (incl. the
+        scrolls/zooms it row-sharded across devices for pure kernel cost —
+        the multi-device twin of FigRenderer.snapshot_scene (incl. the
         retained-scene spans and per-root row reserves)."""
         from ..basics import scaled
         from ..colors import as_color
@@ -647,7 +563,7 @@ class ShardedFigRenderer:
             # masks exist, breaking the tape-row ↔ combo-row mapping the
             # animation table needs — stay on the frame executor
             plan.mega = False
-        if plan.mega and self.use_pallas:
+        if plan.mega:
             kind = "mega"
             combo = plan.mega_combo
             n_quads = combo.shape[0] - 1  # one meta row (clear color)
@@ -717,13 +633,8 @@ class ShardedFigRenderer:
             if plan.mega_combo is not None:
                 plan.mega_combo[idx] = rows
 
-        atlas11 = any(
-            item[0] == "draw" and len(item) > 4 and item[4]
-            for item in plan.structure
-        )
         return _patch_device_scene(
-            self._flattener, scene, renders, dirty,
-            layout="unpacked", atlas11=atlas11,
+            self._flattener, scene, renders, dirty, layout="unpacked",
             old_bboxes=old_bboxes, apply_mirrors=apply_mirrors,
         )
 
@@ -755,69 +666,61 @@ class ShardedFigRenderer:
         if root_transforms is not None:
             table = jnp.asarray(_anim_table(scene, root_transforms))
             ridx = scene.anim_ridx_dev
-            try:
-                if scene.pending_patch is not None:
-                    packed = _patch_staging(*scene.pending_patch)
-                    pav = ex.get_patch_anim_view_runner(
-                        run, scene.n_quads, packed.shape[0],
-                        ex.VIEW_RECT_COLS_UNPACKED,
-                    )
-                    frame, scene.combo_dev = pav(
-                        scene.combo_dev, jnp.asarray(packed), table, ridx,
-                        d, z, *rest,
-                    )
-                    scene.pending_patch = None
-                else:
-                    av = ex.get_anim_view_runner(
-                        run, scene.n_quads, ex.VIEW_RECT_COLS_UNPACKED
-                    )
-                    frame = av(scene.combo_dev, table, ridx, d, z, *rest)
-            except Exception as exc:
-                self._downgrade_scene(scene, exc)
-                return self.render_view(scene, pan, zoom, root_transforms)
+            if scene.pending_patch is not None:
+                packed = _patch_staging(*scene.pending_patch)
+                pav = ex.get_patch_anim_view_runner(
+                    run, scene.n_quads, packed.shape[0],
+                    ex.VIEW_RECT_COLS_UNPACKED,
+                )
+                frame, scene.combo_dev = pav(
+                    scene.combo_dev, jnp.asarray(packed), table, ridx,
+                    d, z, *rest,
+                )
+                scene.pending_patch = None
+            else:
+                av = ex.get_anim_view_runner(
+                    run, scene.n_quads, ex.VIEW_RECT_COLS_UNPACKED
+                )
+                frame = av(scene.combo_dev, table, ridx, d, z, *rest)
             scene.pending_damage = None
             scene.last_cam = None
             scene.last_view_frame = None
             self._last_padded = frame
             self.last_frame = frame[: plan.height, : plan.width]
             return self.last_frame
-        try:
-            if scene.pending_patch is not None and FigRenderer._partial_ok(
-                scene, cam
-            ):
-                # damage-clipped, same contract as single-chip: the select
-                # runs on the PADDED sharded frame (prev is padded too)
-                packed = _patch_staging(*scene.pending_patch)
-                ppv = ex.get_partial_patch_view_runner(
-                    run, scene.n_quads, packed.shape[0],
-                    ex.VIEW_RECT_COLS_UNPACKED,
-                )
-                from ..renderer import _damage_rects
+        if scene.pending_patch is not None and FigRenderer._partial_ok(
+            scene, cam
+        ):
+            # damage-clipped, same contract as single-device: the select
+            # runs on the PADDED sharded frame (prev is padded too)
+            packed = _patch_staging(*scene.pending_patch)
+            ppv = ex.get_partial_patch_view_runner(
+                run, scene.n_quads, packed.shape[0],
+                ex.VIEW_RECT_COLS_UNPACKED,
+            )
+            from ..renderer import _damage_rects
 
-                frame, scene.combo_dev = ppv(
-                    scene.combo_dev, jnp.asarray(packed),
-                    jnp.asarray(_damage_rects(scene.pending_damage)),
-                    d, z, scene.last_view_frame, *rest,
-                )
-                scene.pending_patch = None
-            elif scene.pending_patch is not None:
-                packed = _patch_staging(*scene.pending_patch)
-                pv = ex.get_patch_view_runner(
-                    run, scene.n_quads, packed.shape[0],
-                    ex.VIEW_RECT_COLS_UNPACKED,
-                )
-                frame, scene.combo_dev = pv(
-                    scene.combo_dev, jnp.asarray(packed), d, z, *rest,
-                )
-                scene.pending_patch = None
-            else:
-                viewed = ex.get_view_runner(
-                    run, scene.n_quads, ex.VIEW_RECT_COLS_UNPACKED
-                )
-                frame = viewed(scene.combo_dev, d, z, *rest)
-        except Exception as exc:
-            self._downgrade_scene(scene, exc)
-            return self.render_view(scene, pan, zoom)
+            frame, scene.combo_dev = ppv(
+                scene.combo_dev, jnp.asarray(packed),
+                jnp.asarray(_damage_rects(scene.pending_damage)),
+                d, z, scene.last_view_frame, *rest,
+            )
+            scene.pending_patch = None
+        elif scene.pending_patch is not None:
+            packed = _patch_staging(*scene.pending_patch)
+            pv = ex.get_patch_view_runner(
+                run, scene.n_quads, packed.shape[0],
+                ex.VIEW_RECT_COLS_UNPACKED,
+            )
+            frame, scene.combo_dev = pv(
+                scene.combo_dev, jnp.asarray(packed), d, z, *rest,
+            )
+            scene.pending_patch = None
+        else:
+            viewed = ex.get_view_runner(
+                run, scene.n_quads, ex.VIEW_RECT_COLS_UNPACKED
+            )
+            frame = viewed(scene.combo_dev, d, z, *rest)
         scene.pending_damage = None
         scene.last_cam = cam
         scene.last_view_frame = frame  # padded: the partial-render source
@@ -832,12 +735,9 @@ class ShardedFigRenderer:
         if scene.kind == "mega":
             run, (gh, pw) = get_sharded_mega_executor(
                 self.mesh, plan.height, plan.width, plan.n_masks,
-                plan.has_init_frame, has_atlas=plan.mega_atlas,
-                subpixel_positioning=self._flattener.text_subpixel_positioning,
+                plan.has_init_frame,
             )
-            rest = (self._init_frame(gh, pw, plan.has_init_frame),) + (
-                (self._flattener._device_atlas(),) if plan.mega_atlas else ()
-            )
+            rest = (self._init_frame(gh, pw, plan.has_init_frame),)
         else:
             run, (gh, pw) = get_sharded_frame_executor(
                 self.mesh, tuple(plan.structure), plan.height, plan.width,
@@ -851,35 +751,11 @@ class ShardedFigRenderer:
             )
         return run, rest
 
-    def _downgrade_scene(self, scene, exc: Exception) -> None:
-        if not self.use_pallas:
-            raise exc
-        from ..utils.perf import log_kv
-        import logging
-
-        log_kv(
-            logging.WARNING,
-            "sharded view executor failed; downgrading the scene to XLA",
-            error=repr(exc),
-        )
-        self.use_pallas = False
-        scene.kind = "frame"
-        # the plan's host mirrors already carry any retained patches, so a
-        # deferred device patch is superseded by the repack; the previous
-        # frame came from the failed executor — don't mix paths in a partial
-        scene.pending_patch = None
-        scene.last_view_frame = None
-        scene.last_cam = None
-        scene.combo_dev = jnp.asarray(self._frame_combo(scene.plan))
-        scene.n_quads = scene.plan.n_pad
-        # per-quad slot index is sized to n_quads — rebuild lazily
-        scene.anim_ridx_dev = None
-
     def render_views(self, scene, pans, zooms=1.0, chunk: int = 0,
                      as_uint8: bool = False):
         """Row-sharded flythrough: the camera path renders as chunked
         lax.map dispatches over the sharded executor — every view still
-        spans all chips' row bands, and the whole path's host→device
+        spans all devices' row bands, and the whole path's host→device
         traffic is the (N, 2) pans + (N,) zooms arrays. Bit-exact vs the
         render_view loop (clear snapshots; clear_main=False snapshots fall
         back to the sequential loop to keep chained-composite semantics)."""
@@ -912,18 +788,14 @@ class ShardedFigRenderer:
         )
         batched = ex.get_batch_runner(view_fn, 2)
         parts = []
-        try:
-            for s in range(0, n, chunk):
-                k = min(chunk, n - s)
-                target = 1 << max(k - 1, 0).bit_length()
-                idx = np.minimum(np.arange(target), k - 1)
-                out = batched(jnp.asarray(ds[s : s + k][idx]),
-                              jnp.asarray(zs[s : s + k][idx]),
-                              scene.combo_dev, *rest)
-                parts.append(out[:k, : plan.height, : plan.width])
-        except Exception as exc:
-            self._downgrade_scene(scene, exc)
-            return self.render_views(scene, pans, zooms, chunk, as_uint8)
+        for s in range(0, n, chunk):
+            k = min(chunk, n - s)
+            target = 1 << max(k - 1, 0).bit_length()
+            idx = np.minimum(np.arange(target), k - 1)
+            out = batched(jnp.asarray(ds[s : s + k][idx]),
+                          jnp.asarray(zs[s : s + k][idx]),
+                          scene.combo_dev, *rest)
+            parts.append(out[:k, : plan.height, : plan.width])
         out = parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=0)
         if n:
             self.last_frame = out[-1]
@@ -933,8 +805,8 @@ class ShardedFigRenderer:
 # --- frame-parallel offline rendering ---------------------------------------------
 #
 # The second parallel axis: where the row-sharded executor splits ONE frame
-# across chips, the frame-parallel runner gives each chip WHOLE frames of a
-# render_batch chunk — offline animation/thumbnail farms are embarrassingly
+# across devices, the frame-parallel runner gives each device WHOLE frames of
+# a render_batch chunk — offline animation/thumbnail farms are embarrassingly
 # parallel, so throughput scales ~linearly with mesh size and no collective
 # ever runs (the reference's GL loop has neither axis).
 
@@ -975,7 +847,7 @@ def get_frame_parallel_runner(run, n_vary: int, mesh: Mesh):
             in_specs=tuple(P(FRAMES_AXIS) for _ in vary)
             + tuple(P() for _ in const),
             out_specs=P(FRAMES_AXIS),
-            check_rep=False,
+            check_vma=False,
         )
         return body(*vary, *const)
 

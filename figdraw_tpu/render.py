@@ -5,7 +5,7 @@ renderStages order (:1771-1839), shadow emission (:654-776), rounded-shape
 fills/strokes (:806-906), drawable decomposition into lines / SDF quads with
 adaptive quadratic spans (:947-1651), image/MSDF nodes (:1673-1732) and the
 backdrop-blur pass break (:1734-1754). Draw calls land on any BackendContext
-(the TPU tape backend, or a recording backend in tests).
+(the tape backend, or a recording backend in tests).
 """
 
 from __future__ import annotations

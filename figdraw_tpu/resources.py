@@ -13,7 +13,7 @@ Port of /root/reference/src/figdraw/common/imgutils.nim (+ rchannels.nim):
   * `ImageRef` / `FontRef` RAII handles → retain/release owner-token messages;
     the final release queues eviction (imgutils.nim:61-68, 217-325)
 
-On TPU the "atlas upload" these messages drive is a host-side numpy write +
+Here the "atlas upload" these messages drive is a host-side numpy write +
 one device_put of the dirty atlas (renderer._device_atlas); the bus contract
 is unchanged.
 """

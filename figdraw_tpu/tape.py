@@ -1,11 +1,11 @@
 """TapeBackend: flattens backend draw calls into packed quad arrays.
 
-This is the TPU-native replacement for the GL quad batcher
+This is the replacement for the GL quad batcher
 (/root/reference/src/figdraw/opengl/glcontext.nim:908-1708): instead of
 streaming vertex arrays to glDrawElements, every draw call appends one
 fixed-width record to a NumPy tape. Pass breaks (mask begin/end/pop, backdrop
 blur — the reference's forced flush points, glcontext.nim:716-722,1794-1797,
-1886-1949) become explicit tape items that the TPU frame driver executes.
+1886-1949) become explicit tape items that the device executors run.
 
 Faithful encodings kept from the reference so the kernel math can be verified
 against atlas.frag line-by-line:
@@ -121,7 +121,6 @@ class Tape:
         "combo_rolled",
         "combo_quads",
         "structure_cache",
-        "tile_density",
         # (lvl, root_node_idx) → (qs, qe) per-root row spans from a
         # record_spans native walk (retained scenes); None otherwise
         "root_spans",
@@ -144,11 +143,9 @@ class Tape:
         self.combo_rolled = False
         self.combo_quads = 0
         # native exports precompute the pass structure (from the C++ item
-        # flag bits) and the tile-density summary (fd_density) so
-        # renderer.execute skips the per-frame numpy scans; None = derive
-        # from the mode lanes (executor.tape_structure / pick_tile_h)
+        # flag bits) so renderer.execute skips the per-frame numpy scan;
+        # None = derive from the mode lanes (executor.tape_structure)
         self.structure_cache = None
-        self.tile_density = None
         self.root_spans = None
 
     @property

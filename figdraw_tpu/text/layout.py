@@ -9,7 +9,7 @@ per-font features/variations/language) with UAX#9 bidi reordering
 (text/bidi.py); wrapping is greedy word wrap with CJK break-anywhere, like
 the reference's line breaker.
 
-Pure host-side geometry — the TPU only ever sees the resulting glyph quads.
+Pure host-side geometry — the device only ever sees the resulting glyph quads.
 """
 
 from __future__ import annotations

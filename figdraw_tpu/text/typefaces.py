@@ -402,7 +402,7 @@ class SystemFontRole(enum.IntEnum):
 
 def detect_display_server() -> str:
     """systemfonts.nim:25-32 detectDisplayServer — "wayland" | "x11" |
-    "unknown" (posix only; a TPU host is usually headless → unknown)."""
+    "unknown" (posix only; a render server is usually headless → unknown)."""
     if sys.platform.startswith(("linux", "freebsd")):
         if os.environ.get("WAYLAND_DISPLAY"):
             return "wayland"

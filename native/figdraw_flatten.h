@@ -5,7 +5,7 @@
  * native_dynlib.json): external hosts build scenes as packed Fig rows
  * (layout mirrored by figdraw_tpu/nodesarray.py FIG_DTYPE, validated at load
  * time via fd_fig_struct_size) and receive the packed quad tape + pass items
- * that the TPU executor consumes.
+ * that the device executor consumes.
  *
  * Quad record layout: figdraw_tpu/ops/layout.py (QF_* / QI_* offsets).
  * Item rows (5 x int32): kind word (low byte 0 draw, 1 blur, 2 clear-mask;
@@ -97,12 +97,6 @@ int fd_export(FigdrawFlattenCtx *ctx, float *fields, int32_t *modes,
 
 /* Pass items only (n, 5) i32 — size the upload buffer before exporting. */
 int fd_export_items(FigdrawFlattenCtx *ctx, int32_t *items, int item_cap);
-
-/* Tile-density summary of the walked tape for the host's adaptive Pallas
- * tile-class pick: out[0] = sum over live quads of
- * (floor(bw/tile_w)+1) * (floor(bh/tile_h)+1), out[1] = median live quad
- * bbox height (-1 when no quad has a live bbox). */
-void fd_density(FigdrawFlattenCtx *ctx, int tile_w, int tile_h, float out[2]);
 
 /* Quad rows straight into an upload buffer: rows_cap rows of row_width
  * floats (68 field lanes + 2 bitcast i32 mode lanes); the caller fills the

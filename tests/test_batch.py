@@ -147,8 +147,8 @@ def test_batch_empty():
 
 def _needs_mesh():
     """The frame-parallel legs exercise a REAL multi-device shard; on a
-    single-chip host (the real-TPU tier runs with one device; CPU tests get
-    8 virtual devices from conftest) a 1-wide mesh would trivially pass."""
+    single-device host (one GPU; CPU tests get 8 virtual devices from
+    conftest) a 1-wide mesh would trivially pass."""
     import jax
 
     if len(jax.devices()) < 2:

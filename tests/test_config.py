@@ -56,14 +56,6 @@ def test_renderer_honors_backend_override(monkeypatch):
     assert FigRenderer(atlas_size=64, use_pallas=False).use_pallas is False
 
 
-def test_atlas11_policy_parses(monkeypatch):
-    monkeypatch.setenv("FIGDRAW_ATLAS11", "always")
-    assert config.atlas11_policy() == "always"
-    for junk in ("", "on", "1", "sometimes"):
-        monkeypatch.setenv("FIGDRAW_ATLAS11", junk)
-        assert config.atlas11_policy() == "off"
-
-
 def test_batch_chunk_parses_and_clamps(monkeypatch):
     monkeypatch.setenv("FIGDRAW_BATCH_CHUNK", "4")
     assert config.batch_chunk() == 4
@@ -71,3 +63,48 @@ def test_batch_chunk_parses_and_clamps(monkeypatch):
     assert config.batch_chunk() == 1
     monkeypatch.setenv("FIGDRAW_BATCH_CHUNK", "not-a-number")
     assert config.batch_chunk() == 8
+
+
+@pytest.fixture
+def _restore_cache_config():
+    import jax
+
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_compile_cache_lands_exactly_in_env_dir(monkeypatch, tmp_path,
+                                                _restore_cache_config):
+    import jax
+
+    from figdraw_tpu.utils import jaxcache
+
+    target = tmp_path / "given"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+    jaxcache.enable_compilation_cache(platform="gpu")
+    # used as given: no backend subdirectory, no other directory
+    assert jax.config.jax_compilation_cache_dir == str(target)
+    assert target.is_dir() and not any(target.iterdir())
+
+
+def test_compile_cache_defaults_to_one_dir_in_the_checkout(
+        monkeypatch, _restore_cache_config):
+    import os
+
+    import jax
+
+    from figdraw_tpu.utils import jaxcache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert jaxcache.cache_dir() == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
+    before = jax.config.jax_compilation_cache_dir
+    jaxcache.enable_compilation_cache(platform="cpu")  # GPU only
+    assert jax.config.jax_compilation_cache_dir == before

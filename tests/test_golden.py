@@ -2,7 +2,7 @@
 
 The reference compares one rendered frame against tests/expected/*.png with a
 pixie diff score (trender_rgb_boxes_sdf.nim:127-135, threshold 100). We
-reproduce the same scenes and compare our TPU-rasterized frame against the
+reproduce the same scenes and compare our device-rasterized frame against the
 reference's own golden PNGs (read from the read-only checkout) with a
 per-pixel RMSE bound — the BASELINE.json north-star metric.
 """

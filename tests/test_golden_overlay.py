@@ -3,7 +3,7 @@ with a numpy 3D rasterizer composited as an external layer.
 
 The reference draws a spinning pyramid with raw OpenGL underneath the figdraw
 UI pass (tests/trender_3d_overlay.nim: perspective + lookAt + rotation MVP,
-vertex-color triangles with a depth buffer, LLVMpipe). On TPU there is no GL
+vertex-color triangles with a depth buffer, LLVMpipe). Here there is no GL
 interop; the equivalent is frame-layer composition — here the pyramid is
 rasterized by a ~60-line numpy renderer (perspective-correct vertex colors,
 z-buffer, GL screen mapping) and injected through

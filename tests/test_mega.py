@@ -1,9 +1,8 @@
 """Megakernel fast path: C++ combo export == Python packer, end-to-end parity.
 
 The megakernel executes a mask-heavy frame as ONE Pallas pass (mask planes
-live in VMEM registers; clear sentinels carry tight bboxes). On the 180x6
-clip-table benchmark this runs sub-clip masks at rect-mask speed
-(windy_clip_mask_benchmark.nim's workload)."""
+live in registers; clear sentinels carry tight bboxes) — the path of the
+180x6 clip table (windy_clip_mask_benchmark.nim's workload)."""
 
 import numpy as np
 import pytest
@@ -90,172 +89,10 @@ def test_mega_frame_matches_xla():
     assert np.abs(mega.astype(int) - xla.astype(int)).max() <= 1
 
 
-def test_atlas11_in_kernel_sampling(monkeypatch):
-    """1:1 atlas quads (glyphs, unscaled images) sample a VMEM-resident atlas
-    INSIDE the Pallas kernels (mark_atlas11 + MODE_ATLAS11_BIT); parity
-    within 1/255. Forces FIGDRAW_ATLAS11=always — the default routes atlas
-    runs to the XLA windowed-gather path (measured faster)."""
-    monkeypatch.setenv("FIGDRAW_ATLAS11", "always")
-    import numpy as np
-
-    from figdraw_tpu import (
-        Fig, FigKind, fill, image_style, new_renders, rect, rgba, vec2,
-    )
-    from figdraw_tpu.renderer import FigRenderer
-    from figdraw_tpu.resources import ImageMessageBus, put_image
-    from figdraw_tpu.text.layout import typeset
-    from figdraw_tpu.text.typefaces import FigFont, load_typeface
-
-    tid = load_typeface("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf")
-    bus = ImageMessageBus()
-    img = (np.random.RandomState(0).rand(32, 32, 4) * 255).astype(np.uint8)
-    img[..., 3] = 255
-    put_image(7501, img, bus=bus)
-
-    renders = new_renders()
-    renders.add_root(0, Fig(kind=FigKind.nkRectangle,
-                            screen_box=rect(0, 0, 256, 128),
-                            fill=fill(rgba(250, 250, 250, 255))))
-    f = FigFont(typeface_id=tid, size=17.0)
-    arr = typeset(vec2(240, 40),
-                  [(f, fill(rgba(20, 30, 160, 255)), "Atlas in Pallas AV fi")])
-    renders.add_root(0, Fig(kind=FigKind.nkText,
-                            screen_box=rect(8, 8, 240, 40), text_layout=arr))
-    renders.add_root(0, Fig(kind=FigKind.nkImage,
-                            screen_box=rect(20, 60, 32, 32),
-                            image=image_style(7501)))
-
-    r1 = FigRenderer(atlas_size=256, use_pallas=False)
-    r1.ensure_image_message_subscription(bus)
-    r1.render_frame(renders, vec2(256, 128))
-    ref = r1.take_screenshot()
-    r2 = FigRenderer(atlas_size=256, use_pallas=True)
-    r2.ensure_image_message_subscription(bus)
-    r2.render_frame(renders, vec2(256, 128))
-    assert r2.use_pallas, "pallas path fell back"
-    got = r2.take_screenshot()
-    assert np.abs(ref.astype(int) - got.astype(int)).max() <= 1
-
-    # a SCALED image is not 1:1 — the whole-tape eligibility gate must
-    # reject it and the XLA fallback must still match
-    renders2 = new_renders()
-    renders2.add_root(0, Fig(kind=FigKind.nkRectangle,
-                             screen_box=rect(0, 0, 256, 128),
-                             fill=fill(rgba(250, 250, 250, 255))))
-    renders2.add_root(0, Fig(kind=FigKind.nkImage,
-                             screen_box=rect(20, 20, 64, 64),
-                             image=image_style(7501)))
-    r3 = FigRenderer(atlas_size=256, use_pallas=False)
-    r3.ensure_image_message_subscription(bus)
-    r3.render_frame(renders2, vec2(256, 128))
-    ref2 = r3.take_screenshot()
-    r4 = FigRenderer(atlas_size=256, use_pallas=True)
-    r4.ensure_image_message_subscription(bus)
-    r4.render_frame(renders2, vec2(256, 128))
-    got2 = r4.take_screenshot()
-    assert np.abs(ref2.astype(int) - got2.astype(int)).max() <= 1
-
-
-def test_mega_text_in_clipped_cells(monkeypatch):
-    """Under FIGDRAW_ATLAS11=always, the text-heavy clip scene (glyphs inside
-    clipping cells, > rolled threshold) runs the MEGAKERNEL with in-kernel
-    atlas sampling and matches the XLA path within 1/255 — atlas.frag:284-295
-    sampling inside the one shader. (The default routes this scene to the
-    rolled executor instead — measured 15x faster on hardware — so this
-    pins the experiment-gated path.)"""
-    import numpy as np
-
-    monkeypatch.setenv("FIGDRAW_ATLAS11", "always")
-
-    from figdraw_tpu import (
-        Fig, FigFlags, FigKind, fill, new_renders, rect, rgba, vec2,
-    )
-    from figdraw_tpu import executor as ex
-    from figdraw_tpu.nodes import RenderList, Renders
-    from figdraw_tpu.renderer import FigRenderer
-    from figdraw_tpu.text.layout import typeset
-    from figdraw_tpu.text.typefaces import FigFont, load_typeface
-
-    tid = load_typeface("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf")
-    f = FigFont(typeface_id=tid, size=13.0)
-    lst = RenderList()
-    lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=rect(0, 0, 360, 280),
-                     fill=fill(rgba(248, 249, 251, 255))))
-    for row in range(8):
-        for col in range(3):
-            cell = rect(8 + col * 116, 8 + row * 33, 110, 28)
-            ci = lst.add_root(Fig(kind=FigKind.nkRectangle, screen_box=cell,
-                                  corners=(5,) * 4,
-                                  flags=FigFlags.NfClipContent,
-                                  fill=fill(rgba(255, 255, 255, 255))))
-            arr = typeset(vec2(140, 24), [(f, fill(rgba(30, 30, 40, 255)),
-                                           f"cell r{row}c{col} spills wide")])
-            lst.add_child(ci, Fig(kind=FigKind.nkText,
-                                  screen_box=rect(cell.x + 4, cell.y + 5, 140, 20),
-                                  text_layout=arr))
-    scene = Renders()
-    scene.set_layer(0, lst)
-
-    r1 = FigRenderer(atlas_size=256, use_pallas=False)
-    r1.render_frame(scene, vec2(360, 280))
-    ref = r1.take_screenshot()
-
-    hits = []
-    orig = ex.get_mega_executor
-
-    def spy(*a, **k):
-        hits.append(k)
-        return orig(*a, **k)
-
-    ex.get_mega_executor = spy
-    try:
-        r2 = FigRenderer(atlas_size=256, use_pallas=True)
-        r2.render_frame(scene, vec2(360, 280))
-    finally:
-        ex.get_mega_executor = orig
-    assert r2.use_pallas, "mega fell back"
-    assert hits and hits[0].get("has_atlas"), "scene did not take the atlas mega"
-    got = r2.take_screenshot()
-    assert np.abs(ref.astype(int) - got.astype(int)).max() <= 1
-
-
-def test_atlas11_window_smaller_atlas_than_tile(monkeypatch):
-    """Atlases narrower than a Pallas tile (e.g. 64 px) clamp the sampling
-    window to the atlas and edge-pad the bilinear taps — the dryrun's tiny
-    64-px atlas hit this exact slice-overrun. FIGDRAW_ATLAS11=always keeps
-    the in-kernel sampler on this non-mega scene."""
-    monkeypatch.setenv("FIGDRAW_ATLAS11", "always")
-    import numpy as np
-
-    from figdraw_tpu import Fig, FigKind, fill, new_renders, rect, rgba, vec2
-    from figdraw_tpu.renderer import FigRenderer
-    from figdraw_tpu.text.layout import typeset
-    from figdraw_tpu.text.typefaces import FigFont, load_typeface
-
-    tid = load_typeface("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf")
-    renders = new_renders()
-    renders.add_root(0, Fig(kind=FigKind.nkRectangle,
-                            screen_box=rect(0, 0, 160, 96),
-                            fill=fill(rgba(250, 250, 250, 255))))
-    f = FigFont(typeface_id=tid, size=12.0)
-    arr = typeset(vec2(150, 20), [(f, fill(rgba(0, 0, 0, 255)), "tiny AV")])
-    renders.add_root(0, Fig(kind=FigKind.nkText,
-                            screen_box=rect(6, 6, 150, 20), text_layout=arr))
-
-    r1 = FigRenderer(atlas_size=64, use_pallas=False)
-    r1.render_frame(renders, vec2(160, 96))
-    ref = r1.take_screenshot()
-    r2 = FigRenderer(atlas_size=64, use_pallas=True)
-    r2.render_frame(renders, vec2(160, 96))
-    assert r2.use_pallas, "tiny-atlas pallas path fell back"
-    got = r2.take_screenshot()
-    assert np.abs(ref.astype(int) - got.astype(int)).max() <= 1
-
-
 def test_default_routes_atlas_clip_scene_to_rolled():
-    """DEFAULT policy: an atlas-bearing mask-heavy scene must NOT take the
-    megakernel (mega+atlas measured 44 ms vs 2.8 ms rolled on hardware) —
-    it runs the rolled executor, stays on pallas, and matches XLA."""
+    """An atlas-bearing mask-heavy scene must NOT take the megakernel (its
+    glyph runs need gathers, which the kernels do not do) — the plan picks
+    the rolled executor by shape, stays on pallas, and matches XLA."""
     import numpy as np
 
     from figdraw_tpu import (

@@ -288,7 +288,7 @@ def test_sharded_renderer_full_frame():
 
 
 def test_overlay_layer_composition():
-    """External full-frame layers composite between zlevels — the TPU-native
+    """External full-frame layers composite between zlevels — this renderer's
     mapping of the reference's 3D-overlay GL sandwich (trender_3d_overlay)."""
     from figdraw_tpu import Fig, FigKind
 
@@ -476,43 +476,6 @@ def test_native_tape_uploads_without_repacking(monkeypatch):
     monkeypatch.setattr(ex, "pack_tape_combo", boom)
     out = ren.execute(tape)
     assert np.isfinite(np.asarray(out)).all()
-
-
-def test_pick_tile_h_density_classes():
-    """The three measured tile classes: sparse big quads keep 128 rows,
-    >48 quads/tile takes 64, >120 takes 32; padding rows don't count."""
-    import numpy as np
-
-    from figdraw_tpu.executor import (
-        DENSE_TILE_H, VERY_DENSE_TILE_H, pick_tile_h,
-    )
-    from figdraw_tpu.ops.layout import (
-        QF_BBOX_X0, QF_BBOX_X1, QF_BBOX_Y0, QF_BBOX_Y1, QF_WIDTH,
-    )
-    from figdraw_tpu.ops.raster_pallas import TILE_H
-
-    def fields_for(n, w, h, pad=0):
-        f = np.zeros((n + pad, QF_WIDTH), np.float32)
-        f[:n, QF_BBOX_X0] = 10.0
-        f[:n, QF_BBOX_Y0] = 10.0
-        f[:n, QF_BBOX_X1] = 10.0 + w
-        f[:n, QF_BBOX_Y1] = 10.0 + h
-        return f
-
-    if TILE_H <= DENSE_TILE_H:
-        import pytest
-
-        pytest.skip("FIGDRAW_TILE override flattens the density classes")
-    # 20 tall quads on a 256x256 frame: sparse -> default tile
-    assert pick_tile_h(fields_for(20, 200, 200), 20, 256, 256) == TILE_H
-    # 60 tall quads x 4 pairs over 4 tiles = 60/tile -> dense
-    assert pick_tile_h(fields_for(60, 200, 200), 60, 256, 256) == DENSE_TILE_H
-    # 150 x 4 / 4 = 150/tile -> very dense
-    assert (pick_tile_h(fields_for(150, 200, 200), 150, 256, 256)
-            == VERY_DENSE_TILE_H)
-    # padding must not change the class
-    padded = fields_for(20, 200, 200, pad=4000)
-    assert pick_tile_h(padded, padded.shape[0], 256, 256) == TILE_H
 
 
 def test_packed_wire_roundtrip_bit_exact():

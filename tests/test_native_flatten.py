@@ -420,18 +420,3 @@ def test_native_structure_cache_atlas_and_masks():
     assert any(s[0] == "draw" and s[2] for s in structure)
 
 
-def test_native_density_matches_pick_tile_h():
-    """fd_density's (pairs, median-height) summary must pick the same tile
-    class pick_tile_h derives from the tape's bbox columns."""
-    from figdraw_tpu import executor as ex
-    from figdraw_tpu.scenes import make_render_tree
-
-    for copies, w, h in ((3, 320, 240), (20, 1280, 720)):
-        ren = FigRenderer(atlas_size=64, use_pallas=False)
-        arr = from_renders(make_render_tree(float(w), float(h), frame=2,
-                                            copies=copies))
-        tape = ren.flatten(arr, vec2(w, h))
-        assert tape.tile_density is not None
-        got = ex.tile_h_from_density(*tape.tile_density, h, w)
-        want = ex.pick_tile_h(tape.fields, tape.count, h, w)
-        assert got == want

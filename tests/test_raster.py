@@ -512,34 +512,10 @@ def test_run_scoped_occlusion_keeps_earlier_runs():
     assert int(global_counts[0]) < tape.count
 
 
-def test_chunked_carry_matches_unchunked(monkeypatch):
-    """VMEM chunking: a tape wider than VMEM_QUAD_CHUNK runs as several
-    front-to-back kernel calls carrying (acc, T) planes between them —
-    pixel output must match the single-call path (and the XLA reference)
-    including the transmittance early-out across chunk boundaries."""
-    from figdraw_tpu.ops import raster_pallas
-    from figdraw_tpu.scenes import make_render_tree
-
-    scene = make_render_tree(192.0, 128.0, frame=0, copies=10)
-
-    def render():
-        ren = FigRenderer(atlas_size=64, use_pallas=True)
-        out = np.asarray(ren.render_frame(scene, vec2(192, 128)))
-        assert ren.use_pallas, "pallas fell back"
-        return out
-
-    whole = render()
-    monkeypatch.setattr(raster_pallas, "VMEM_QUAD_CHUNK", 16)
-    chunked = render()
-    assert np.abs(chunked - whole).max() <= 1.0 / 512.0, (
-        np.abs(chunked - whole).max()
-    )
-
-
 def test_rotated_edge_tie_pixels_match_xla():
     """Snapped integer geometry puts rotated quad edges EXACTLY through
     pixel centers (the inverse-affine u/v lands on 0.0 to the last bit);
-    XLA and Mosaic order the multiply-add differently, so without the
+    XLA and the Pallas kernels order the multiply-add differently, so without the
     epsilon guard in quad_eval(.planar)'s `inside` test a ±1ulp tie flips
     whole AA edge pixels between the paths (observed: 52/255 on a 3°
     box). Pins pallas == XLA exactly on the tie-heavy angles."""

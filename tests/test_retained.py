@@ -224,19 +224,22 @@ def test_patch_preserves_unrelated_rows_and_meta():
 
 
 def test_patch_then_downgrade_uses_patched_host_mirror():
-    """The Pallas→XLA downgrade path renders from plan.combo: patches must
-    land in the host mirror too."""
+    """Patches land in the host mirror (plan.combo) as well as on the
+    device, so a re-plan from the mirror sees the patched scene; the
+    patched Pallas frame matches a fresh XLA snapshot within 1/255."""
     arr, boxes = boxes_scene(12)
     ren = FigRenderer(atlas_size=64, use_pallas=True)
     scene = ren.snapshot_scene(arr, vec2(W, H))
     arr[0].set_solid_color(boxes[1], rgba(255, 255, 0, 255))
     arr[0].set_box(boxes[1], 140, 90, 40, 40)
     ren.update_scene(scene, arr, dirty=[(0, boxes[1])])
-    ren._downgrade_scene(scene, RuntimeError("forced test downgrade"))
+    ren._flush_scene_patch(scene)
+    assert np.array_equal(np.asarray(scene.combo_dev), scene.plan.combo,
+                          equal_nan=True)
     got = np.asarray(ren.render_view(scene))
     ref = FigRenderer(atlas_size=64, use_pallas=False)
     want = np.asarray(ref.render_view(ref.snapshot_scene(arr, vec2(W, H))))
-    assert np.array_equal(got, want)
+    assert np.abs(got - want).max() <= 1.0 / 255.0
 
 
 def test_patch_multi_layer(monkeypatch):
@@ -547,14 +550,14 @@ def test_partial_render_text_scene(use_pallas, monkeypatch):
 
 
 def test_partial_skipped_after_executor_flip():
-    """A renderer-level use_pallas flip between frames (execute()'s Pallas
-    failure fallback) must not mix the stale Pallas frame with XLA in-rect
+    """A renderer-level use_pallas flip between frames (a caller switching
+    rasterizers) must not mix the stale Pallas frame with XLA in-rect
     pixels: the camera key carries the executor identity."""
     arr, boxes = boxes_scene(12)
     ren = FigRenderer(atlas_size=64, use_pallas=True)
     scene = ren.snapshot_scene(arr, vec2(W, H))
     ren.render_view(scene)  # Pallas frame cached
-    ren.use_pallas = False  # simulate execute()'s runtime fallback
+    ren.use_pallas = False  # the caller switches to the XLA rasterizer
     arr[0].set_box(boxes[2], 90, 90, 26, 38)
     ren.update_scene(scene, arr, dirty=[(0, boxes[2])])
     got = np.asarray(ren.render_view(scene))
@@ -587,45 +590,6 @@ def test_back_to_back_same_root_newest_wins(monkeypatch):
     got = np.asarray(ren.render_view(scene))
     assert flushes["n"] == 0, "back-to-back updates should merge, not flush"
     assert np.array_equal(got, _fresh_frame(ren, arr))
-
-
-def test_atlas11_plan_rejects_atlas_rows(monkeypatch):
-    """Under an ATLAS11 plan (FIGDRAW_ATLAS11=always baked in-kernel
-    sampler marks), atlas-BEARING dirty roots re-snapshot — raw scratch
-    rows would lose the mode bit — while pure-SDF dirty roots still patch
-    (they carry no marks to lose)."""
-    from figdraw_tpu.text.layout import typeset
-    from figdraw_tpu.text.typefaces import FigFont, load_typeface
-
-    tid = load_typeface(DEJAVU)
-    f = FigFont(typeface_id=tid, size=14.0)
-    renders = new_renders()
-    renders.add_root(0, Fig(kind=FigKind.nkRectangle,
-                            screen_box=rect(0, 0, W, H),
-                            fill=fill(rgba(250, 250, 250, 255))))
-    t = renders.add_root(0, Fig(
-        kind=FigKind.nkText, screen_box=rect(16, 16, 200, 40),
-        text_layout=typeset(vec2(200, 40),
-                            [(f, fill(rgba(0, 0, 0, 255)), "atlas11")])))
-    b = renders.add_root(0, Fig(kind=FigKind.nkRectangle,
-                                screen_box=rect(40, 90, 60, 50),
-                                fill=fill(rgba(220, 90, 40, 220))))
-    arr = from_renders(renders)
-    ren = FigRenderer(atlas_size=256, use_pallas=False)
-    scene = ren.snapshot_scene(arr, vec2(W, H))
-    scene.plan.atlas11_runs = True  # simulate FIGDRAW_ATLAS11=always
-    stats = _patch_hits(monkeypatch)
-    # pure-SDF dirty root: patches even under the atlas11 plan
-    arr[0].set_box(b, 150, 100, 60, 50)
-    ren.update_scene(scene, arr, dirty=[(0, b)])
-    assert stats["ok"] == 1
-    # atlas-bearing dirty root: walk rejects (allow_atlas off) → fallback
-    scene.plan.atlas11_runs = True  # survive the patch; reapply post-copy
-    arr[0].set_box(t, 30, 120, 200, 40)
-    ren.update_scene(scene, arr, dirty=[(0, t)])
-    assert stats["ok"] == 1, "text root must not patch under atlas11"
-    assert np.array_equal(np.asarray(ren.render_view(scene)),
-                          _fresh_frame(ren, arr))
 
 
 def test_reserved_text_label_updates_patch_in_place(monkeypatch):
